@@ -1,0 +1,121 @@
+"""Rasterizer facade: backend selection and render caching (counterpart of
+``gaussian_splatting_tpu/ops/facade.py``).
+
+Backend ``"auto"`` resolves to ``"cuda"`` (binning + the hand-written
+kernels); ``"ref"`` is the PyTorch oracle. The render cache returns an
+earlier result when the view matrix is within ``cache_view_eps`` (Frobenius
+norm) of a cached one; it holds the last 32 views. The facade serves
+interactive and evaluation use, so it renders without autograd.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
+from gaussian_splatting_tpu_torch.ops.render import (
+    RenderOut,
+    compose_render_mode,
+    render,
+    resolve_backend,
+)
+
+_CACHE_SIZE = 32
+
+
+class GaussianRasterizer:
+    def __init__(
+        self,
+        width: int,
+        height: int,
+        tile_size: int = 16,
+        backend: str = "auto",
+        enable_caching: bool = False,
+        cache_view_eps: float = 0.01,
+        sh_degree: int = 3,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.backend = resolve_backend(backend)
+        self.width = width
+        self.height = height
+        self.tile_size = tile_size
+        self.sh_degree = sh_degree
+        self.enable_caching = enable_caching
+        self.cache_view_eps = cache_view_eps
+        self._cache: List = []  # [(viewmat np, RenderOut)]
+        self.cache_hits = 0
+        self.cache_misses = 0
+
+    def _cache_lookup(self, viewmat: np.ndarray) -> Optional[RenderOut]:
+        for vm, out in self._cache:
+            if np.linalg.norm(vm - viewmat) < self.cache_view_eps:
+                self.cache_hits += 1
+                return out
+        self.cache_misses += 1
+        return None
+
+    def render_single(self, params, viewpoint: Dict, bg=None) -> RenderOut:
+        """params: a GaussianParams, or a dict with means3D / scales (raw
+        log) / rotations / opacities (raw logit) / shs; viewpoint: a dict
+        with world_view_transform (4, 4) and K (3, 3)."""
+        vm = viewpoint["world_view_transform"]
+        viewmat = (vm.detach().cpu().numpy() if torch.is_tensor(vm)
+                   else np.asarray(vm)).astype(np.float32)
+        if self.enable_caching:
+            hit = self._cache_lookup(viewmat)
+            if hit is not None:
+                return hit
+        means, quats, log_scales, logit_op, sh = _unpack_params(params)
+        if bg is None:
+            bg = torch.zeros((3,), dtype=torch.float32)
+        with torch.no_grad():
+            out = render(means, quats, log_scales, logit_op, sh, viewmat,
+                         viewpoint["K"], self.width, self.height,
+                         sh_degree=self.sh_degree, bg=bg, backend=self.backend,
+                         tile_size=self.tile_size, device=self.device)
+        if self.enable_caching:
+            self._cache.append((viewmat, out))
+            if len(self._cache) > _CACHE_SIZE:
+                self._cache.pop(0)
+        return out
+
+    def render_batch(self, params, viewpoints: List[Dict], bg=None) -> List[RenderOut]:
+        """Render each viewpoint in turn."""
+        return [self.render_single(params, vp, bg=bg) for vp in viewpoints]
+
+    def render_with_depth(self, params, viewpoint: Dict, bg=None,
+                          render_mode: str = "RGB+ED") -> Dict:
+        out = self.render_single(params, viewpoint, bg=bg)
+        return {
+            "render": compose_render_mode(render_mode, out.render, out.alpha, out.depth),
+            "alpha": out.alpha,
+            "depth": out.depth,
+            "means2d": out.means2d,
+            "radii": out.radii,
+            "visibility_filter": out.visibility,
+        }
+
+    def cache_stats(self) -> Dict[str, int]:
+        return {"hits": self.cache_hits, "misses": self.cache_misses}
+
+
+def _unpack_params(params):
+    from gaussian_splatting_tpu_torch.models.gaussians import GaussianParams
+
+    if isinstance(params, GaussianParams):
+        return (params.means, params.quats, params.log_scales,
+                params.logit_opacities, params.sh_coeffs)
+
+    def get(*names):
+        for nm in names:
+            if nm in params:
+                return params[nm]
+        raise KeyError(f"params need one of {names}")
+
+    return (get("means3D", "means"), get("rotations", "quats"),
+            get("scales", "log_scales"), get("opacities", "logit_opacities"),
+            get("shs", "sh_coeffs"))
