@@ -5,11 +5,15 @@ against. This package imports ``torch`` and never ``jax`` or anything of
 ``gaussian_splatting_tpu``. Its layout mirrors the JAX package so a module's
 counterpart is easy to find:
 
-- ``core/``     activations, quaternions, spherical harmonics, cameras
-- ``ops/``      projection, tile binning, the torch oracle, the CUDA
-                rasterizer, render and the facade
-- ``models/``   the gaussian parameter container
-- ``training/`` checkpoint reading
+- ``core/``     activations, quaternions, spherical harmonics, cameras,
+                the SE(3) exponential map
+- ``ops/``      projection, tile binning, the gradient reduce, the torch
+                oracle, the CUDA rasterizer (forward and backward), render
+                and the facade
+- ``models/``   the gaussian parameter container and training-state
+                conversion
+- ``training/`` configuration, losses, Adam, the training step and
+                checkpoints
 - ``csrc/``     the hand-written Hopper kernels (built on first use by
                 ``ops/_build.py``)
 

@@ -18,7 +18,8 @@
 // prefix-product scan and MXU blend are TPU artefacts and are not carried
 // over: here each thread walks the chunk sequentially.
 //
-// The transmittance chain (sigma, alpha, the products and the stop test) is
+// The transmittance chain (sigma, alpha, the products and the stop test)
+// lives in raster_common.cuh, shared with the backward kernel, and is
 // written with explicit round-to-nearest intrinsics, so no multiply-add is
 // contracted and the stop decisions are bit-identical to the plain PyTorch
 // version (fwd_tiles_plain), which does the same float32 operations in the
@@ -33,11 +34,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "raster_common.cuh"
 
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kAlphaSkip = 1.0f / 255.0f;
-constexpr float kTEarlyStop = 1e-4f;
+namespace {
 
 __global__ void rasterize_fwd_kernel(const int* __restrict__ tile_starts,
                                      const int* __restrict__ counts,
@@ -68,22 +67,12 @@ __global__ void rasterize_fwd_kernel(const int* __restrict__ tile_starts,
 
     float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
     for (int k = 0; k < n; ++k) {
-      const float dx = __fsub_rn(px, sh[k]);
-      const float dy = __fsub_rn(py, sh[chunk + k]);
-      const float ca = sh[2 * chunk + k];
-      const float cb = sh[3 * chunk + k];
-      const float cc = sh[4 * chunk + k];
-      const float op = sh[5 * chunk + k];
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                   __fmul_rn(__fmul_rn(cc, dy), dy));
-      const float sigma = __fadd_rn(__fmul_rn(0.5f, quad),
-                                    __fmul_rn(__fmul_rn(cb, dx), dy));
-      const float araw = __fmul_rn(op, expf(-sigma));
-      const float alpha =
-          (sigma >= 0.f && araw >= kAlphaSkip) ? fminf(araw, kAlphaClamp) : 0.f;
-      const float prod_next = __fmul_rn(prod, __fsub_rn(1.0f, alpha));
-      if (!(__fmul_rn(tcar, prod_next) > kTEarlyStop)) break;
-      const float w = __fmul_rn(__fmul_rn(alpha, tcar), prod);
+      const gs::Entry e = gs::eval_entry(px, py, sh[k], sh[chunk + k], sh[2 * chunk + k],
+                                         sh[3 * chunk + k], sh[4 * chunk + k],
+                                         sh[5 * chunk + k]);
+      const float prod_next = gs::next_prod(prod, e.alpha);
+      if (!gs::entry_counts(tcar, prod_next)) break;
+      const float w = __fmul_rn(__fmul_rn(e.alpha, tcar), prod);
       acc_r += w * sh[6 * chunk + k];
       acc_g += w * sh[7 * chunk + k];
       acc_b += w * sh[8 * chunk + k];

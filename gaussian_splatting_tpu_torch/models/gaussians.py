@@ -117,3 +117,63 @@ def state_from_numpy(arrays: Dict[str, np.ndarray],
         xyz_grad_accum=opt("xyz_grad_accum", (C, 3), torch.float32),
         xyz_grad_count=opt("xyz_grad_count", (C, 1), torch.float32),
         max_radii2d=opt("max_radii2d", (C,), torch.int32))
+
+
+_STATE_KEYS = ("alive", "xyz_grad_accum", "xyz_grad_count", "max_radii2d")
+_POSE_KEYS = ("deltas", "mu", "nu")
+
+
+def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A training state (``training.step.TrainState``) as numpy arrays,
+    under the keys of the JAX package's ``.npz`` checkpoints:
+    ``params/<k>``, ``adam_mu/<k>``, ``adam_nu/<k>`` for the six parameter
+    groups, ``alive``, ``xyz_grad_accum``, ``xyz_grad_count``,
+    ``max_radii2d``, ``adam_step``, ``iteration`` and, with pose
+    refinement, ``poses/deltas``, ``poses/mu``, ``poses/nu``."""
+    def npy(t):
+        return t.detach().cpu().numpy()
+
+    out = {}
+    for k in PARAM_KEYS:
+        out[f"params/{k}"] = npy(getattr(state.gauss.params, k))
+        out[f"adam_mu/{k}"] = npy(getattr(state.opt.mu, k))
+        out[f"adam_nu/{k}"] = npy(getattr(state.opt.nu, k))
+    for k in _STATE_KEYS:
+        out[k] = npy(getattr(state.gauss, k))
+    out["adam_step"] = npy(state.opt.step)
+    out["iteration"] = npy(state.iteration)
+    if state.poses is not None:
+        for k in _POSE_KEYS:
+            out[f"poses/{k}"] = npy(getattr(state.poses, k))
+    return out
+
+
+def train_state_from_numpy(arrays: Dict[str, np.ndarray], device: DeviceLike = None):
+    """The ``training.step.TrainState`` on ``device`` (CUDA unless given)
+    from numpy arrays under the keys ``train_state_to_numpy`` writes (the
+    JAX checkpoint's keys): parameters, Adam moments and step, iteration,
+    the densify accumulators and, when ``poses/deltas`` is present, the pose
+    corrections. This is how a JAX training state, or a checkpoint, enters
+    the port."""
+    from gaussian_splatting_tpu_torch.training.optimizer import AdamState
+    from gaussian_splatting_tpu_torch.training.step import PoseState, TrainState
+
+    dev = resolve_device(device)
+    gauss = state_from_numpy({**{k: arrays[f"params/{k}"] for k in PARAM_KEYS},
+                              **{k: arrays[k] for k in _STATE_KEYS}}, dev)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    def moments(prefix):
+        return GaussianParams(**{k: f32(arrays[f"{prefix}/{k}"]) for k in PARAM_KEYS})
+
+    poses = (PoseState(*(f32(arrays[f"poses/{k}"]) for k in _POSE_KEYS))
+             if "poses/deltas" in arrays else None)
+    return TrainState(gauss=gauss,
+                      opt=AdamState(mu=moments("adam_mu"), nu=moments("adam_nu"),
+                                    step=i32(arrays["adam_step"])),
+                      iteration=i32(arrays["iteration"]), poses=poses)

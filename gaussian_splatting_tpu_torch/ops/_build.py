@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named by a hash of its source and
-flags, then loaded with ``ctypes``. A source with a plain C interface builds
+``build/kernels/`` at the repository root, named by a hash of its source,
+the shared headers ``csrc/*.cuh`` and the flags, then loaded with
+``ctypes``. A source with a plain C interface builds
 in seconds (no PyTorch headers). Pointers travel as ``ctypes.c_void_p``, the
 stream is ``torch.cuda.current_stream().cuda_stream``, and every entry point
 returns ``cudaGetLastError()`` so a refused launch is reported at once.
@@ -39,8 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built. The
+    name hashes the source, every shared header ``csrc/*.cuh`` and the
+    flags, so editing a header rebuilds each kernel that may include it."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,13 +1,17 @@
-"""Tiled rasterization on the GPU: binning + the hand-written forward
-kernel (counterpart of ``gaussian_splatting_tpu/ops/rasterize_pallas.py``,
-forward half; the ``"cuda"`` render backend).
+"""Tiled rasterization on the GPU with analytic gradients: binning + the
+hand-written forward and backward kernels (counterpart of
+``gaussian_splatting_tpu/ops/rasterize_pallas.py``; the ``"cuda"`` render
+backend).
 
 ``rasterize_tiled`` bins the gaussians (``ops/tiling.py``, with CUDA kernel
 1, ``pack_soa``) and runs CUDA kernel 2 (``csrc/rasterize_fwd.cu``) over the
 (16, M) SoA: one block per 16x16 tile, one thread per pixel. The stop rule
 is the TPU kernel's, chunk by chunk (see ``fwd_tiles_plain``), so the chunk
-length is part of the result. The backward kernel belongs to the training
-slice: differentiating the result raises ``NotImplementedError``.
+length is part of the result. Its backward runs CUDA kernel 3
+(``csrc/rasterize_bwd.cu``), which recomputes the forward's alphas and
+appends per-entry gradients tagged with the gaussian id to one stream, then
+reduces the stream per gaussian (``tiling.reduce_padded_grads``: id sort,
+CUDA kernels 5 ``pack_rows`` and 4 ``segsum``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from gaussian_splatting_tpu_torch.ops.tiling import (
     cdiv,
     check_binning_mode,
     isect_and_sort,
+    reduce_padded_grads,
     total_slots,
 )
 
@@ -152,24 +157,166 @@ def fwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor
 fwd_tiles.launches = 0
 
 
-def grad_cap(n_gaussians: int, max_t: int, chunk: int) -> int:
+def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor,
+                    gout: torch.Tensor, fout: torch.Tensor, tile_size: int, ntx: int,
+                    chunk: int, n_gaussians: int, grad_cap: int):
+    """Plain PyTorch version of the backward kernel. Returns ``(grad,
+    meta, active)``: ``grad`` and ``meta`` as ``bwd_tiles`` returns them,
+    with the stream's columns in the TPU kernel's order (tile by tile, entry
+    by entry: the SoA's own order), and ``active``, the number of (pixel,
+    entry) pairs that count and pass the alpha gate, for which the kernel
+    computes gradient terms.
+
+    A per-chunk loop vectorized over a batch of tiles. It recomputes the
+    forward of ``fwd_tiles_plain`` (same float32 operations, the sequential
+    product, so the same stop mask) and the per-entry gradients of
+    ``rasterize_pallas.py:338-390`` with the prefix sum of gw * w carried
+    across chunks, summed over each tile's pixels."""
+    T = counts.shape[0]
+    ts = tile_size
+    P = ts * ts
+    dev = soa.device
+    grad = torch.empty((16, grad_cap), dtype=torch.float32, device=dev)
+    total = int(tile_starts[T]) if T else 0
+    n_chunks_total = cdiv(total, chunk)
+    kept = min(n_chunks_total, grad_cap // chunk) * chunk
+    grad[:, :kept] = 0.0
+    grad[0, :kept] = float(n_gaussians)
+    active = torch.zeros((), dtype=torch.int64, device=dev)
+    pidx = torch.arange(P, device=dev)
+    kk = torch.arange(chunk, device=dev)
+    for t0 in range(0, T, _PLAIN_TILE_BATCH):
+        t1 = min(T, t0 + _PLAIN_TILE_BATCH)
+        tiles = torch.arange(t0, t1, device=dev)
+        cnt = counts[t0:t1].long()
+        st = tile_starts[t0:t1].long()
+        px = (((tiles % ntx) * ts)[:, None] + pidx % ts).to(torch.float32)[:, :, None] + 0.5
+        py = (((tiles // ntx) * ts)[:, None] + pidx // ts).to(torch.float32)[:, :, None] + 0.5
+        g = gout[t0:t1]                                             # (B, 8, P)
+        q = (g * fout[t0:t1]).sum(1)[:, :, None]                    # (B, P, 1)
+        gc = [g[:, c, :, None] for c in range(5)]                   # (B, P, 1) each
+        tcar = torch.ones((t1 - t0, P, 1), dtype=torch.float32, device=dev)
+        pcar = torch.zeros((t1 - t0, P, 1), dtype=torch.float32, device=dev)
+        n_chunks = int(cdiv(int(cnt.max()), chunk)) if t1 > t0 else 0
+        for ci in range(n_chunks):
+            pos = ci * chunk + kk                                  # (K,)
+            valid = pos[None, :] < cnt[:, None]                    # (B, K)
+            col = torch.where(valid, st[:, None] + pos[None, :], 0)
+            data = soa[:12][:, col]                                # (12, B, K)
+            mx, my, ca, cb, cc, op = (data[i][:, None, :] for i in range(6))
+            dx = px - mx
+            dy = py - my
+            sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+            vis = torch.exp(-sigma)
+            araw = op * vis
+            contrib = (sigma >= 0.0) & (araw >= ALPHA_SKIP) & valid[:, None, :]
+            alpha = torch.where(contrib, torch.clamp_max(araw, ALPHA_CLAMP), 0.0)
+            prod_incl = _cumprod_sequential(1.0 - alpha)
+            prod_excl = torch.cat([torch.ones_like(prod_incl[..., :1]),
+                                   prod_incl[..., :-1]], dim=-1)
+            mask = tcar * prod_incl > T_EARLY_STOP
+            t_before = tcar * prod_excl
+            w = torch.where(mask, alpha * t_before, 0.0)          # (B, P, K)
+            gw = sum(gc[c] * data[6 + c][:, None, :] for c in range(4)) + gc[4]
+            gww = gw * w
+            prefix = pcar + torch.cumsum(gww, dim=-1)
+            d_alpha = torch.where(mask & contrib,
+                                  gw * t_before - (q - prefix) / (1.0 - alpha), 0.0)
+            active += (mask & contrib).sum()
+            gate = contrib & (araw <= ALPHA_CLAMP)
+            d_sigma = torch.where(gate, -d_alpha * araw, 0.0)
+            rows = (
+                (-(ca * dx + cb * dy) * d_sigma).sum(1),
+                (-(cc * dy + cb * dx) * d_sigma).sum(1),
+                (0.5 * dx * dx * d_sigma).sum(1),
+                (dx * dy * d_sigma).sum(1),
+                (0.5 * dy * dy * d_sigma).sum(1),
+                torch.where(gate, d_alpha * vis, 0.0).sum(1),
+                *((w * gc[c]).sum(1) for c in range(4)),
+            )                                                      # 10 x (B, K)
+            dest = col[valid]
+            keep = dest < kept
+            dest = dest[keep]
+            grad[0, dest] = data[11][valid][keep]
+            for r, v in enumerate(rows):
+                grad[1 + r, dest] = v[valid][keep]
+            tcar = tcar * torch.where(mask, prod_incl, 1.0).amin(-1, keepdim=True)
+            pcar = pcar + gww.sum(-1, keepdim=True)
+    meta = torch.tensor([kept, n_chunks_total * chunk - kept], dtype=torch.int32,
+                        device=dev)
+    return grad, meta, active
+
+
+def _check_bwd_args(tile_starts, counts, soa, gout, fout, tile_size, chunk, grad_cap):
+    _check_fwd_args(tile_starts, counts, soa, tile_size, chunk)
+    shape = (counts.shape[0], 8, tile_size * tile_size)
+    for name, x in (("gout", gout), ("fout", fout)):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
+        if x.device != soa.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and on the SoA's device")
+    if grad_cap < chunk or grad_cap % chunk:
+        raise ValueError("grad_cap must be a positive multiple of chunk")
+
+
+def bwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor,
+              gout: torch.Tensor, fout: torch.Tensor, tile_size: int, ntx: int,
+              chunk: int, n_gaussians: int, grad_cap: int):
+    """Backward sweep of every tile's segment. ``gout`` is the cotangent of
+    the forward output ``fout`` (both (T, 8, P)). Returns ``(grad, meta)``:
+    the (16, grad_cap) stream, one column per entry [gaussian id, dmx, dmy,
+    dA, dB, dC, dop, dr, dg, db, ddepth, 0 x 5], and meta (2,) int32
+    [n_written, n_dropped], both counted in whole chunks as the TPU kernel
+    counts them; columns in [entries, n_written) are sentinels (id N, zero
+    payload), columns past n_written are unset. CUDA tensors run the kernel
+    (``csrc/rasterize_bwd.cu``; its column order changes from run to run),
+    CPU tensors the plain version."""
+    _check_bwd_args(tile_starts, counts, soa, gout, fout, tile_size, chunk, grad_cap)
+    if soa.device.type == "cpu":
+        return bwd_tiles_plain(tile_starts, counts, soa, gout, fout, tile_size, ntx,
+                               chunk, n_gaussians, grad_cap)[:2]
+    if soa.device.type != "cuda":
+        raise ValueError(f"bwd_tiles runs on CUDA or CPU tensors, not {soa.device}")
+    fn = _build.load("rasterize_bwd").gs_rasterize_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    grad = torch.empty((16, grad_cap), dtype=torch.float32, device=soa.device)
+    meta = torch.empty((3,), dtype=torch.int32, device=soa.device)
+    with torch.cuda.device(soa.device):
+        rc = fn(tile_starts.data_ptr(), counts.data_ptr(), soa.data_ptr(), soa.shape[1],
+                gout.data_ptr(), fout.data_ptr(), grad.data_ptr(), grad_cap,
+                meta.data_ptr(), counts.shape[0], tile_size, ntx, chunk,
+                float(n_gaussians), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_bwd kernel launch failed: cudaError {rc}")
+    bwd_tiles.launches += 1
+    return grad, meta[:2]
+
+
+bwd_tiles.launches = 0
+
+
+def grad_cap(n_gaussians: int, max_t: int, chunk: int,
+             grad_buffer_frac: float = 1.0) -> int:
     """Capacity of the backward kernel's gradient stream
-    (``rasterize_pallas.py:823-828``: dense layout, ``grad_cap_mult`` 8,
-    ``grad_buffer_frac`` 1). The forward only needs it for the
-    ``n_grad_dropped`` bound in the stats; the training slice adds the
-    fraction."""
-    bound = max(chunk, min(total_slots(n_gaussians, max_t, None), 8 * n_gaussians))
+    (``rasterize_pallas.py:823-828``, dense layout, ``grad_cap_mult`` 8):
+    the bound min(N * max_t, 8N) scaled by ``grad_buffer_frac``, rounded up
+    to a chunk, plus one chunk for the final sentinel pad."""
+    bound = min(total_slots(n_gaussians, max_t, None), 8 * n_gaussians)
+    bound = max(chunk, int(bound * float(grad_buffer_frac)))
     return cdiv(bound, chunk) * chunk + chunk
 
 
 class _RasterizeTiled(torch.autograd.Function):
-    """Binning + forward kernel. The backward kernel is the training slice's
-    work; until it lands, differentiating raises instead of returning a
-    result that silently has no gradient."""
+    """Binning + forward kernel; the backward runs the backward kernel and
+    the per-gaussian reduce (``rasterize_pallas.py:985-1004``)."""
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, depths, radii, cfg):
-        width, height, ts, chunk, max_t, gcap = cfg
+        width, height, ts, chunk, max_t, gcap, _, _ = cfg
         b = isect_and_sort(means2d, conics, colors, opacities, depths, radii,
                            width, height, ts, chunk, max_t)
         out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, ts,
@@ -177,12 +324,25 @@ class _RasterizeTiled(torch.autograd.Function):
         n_grad_dropped = torch.clamp_min(b.n_isect + chunk - gcap, 0)
         ctx.mark_non_differentiable(b.n_isect, b.n_dropped, b.n_budget_dropped,
                                     n_grad_dropped)
+        ctx.save_for_backward(b.sorted_soa, b.tile_starts, b.counts, out)
+        ctx.cfg = cfg
+        ctx.n_gaussians = means2d.shape[0]
         return out, b.n_isect, b.n_dropped, b.n_budget_dropped, n_grad_dropped
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "backward kernel: ROADMAP queue 2 item 3 (_bwd_kernel, training slice)")
+    def backward(ctx, g_out, *_):
+        width, _, ts, chunk, _, gcap, depth_grad, reduce_slices = ctx.cfg
+        soa, tile_starts, counts, out = ctx.saved_tensors
+        N = ctx.n_gaussians
+        g = torch.zeros_like(out) if g_out is None else g_out.contiguous()
+        grad, meta = bwd_tiles(tile_starts, counts, soa, g, out, ts, cdiv(width, ts),
+                               chunk, N, gcap)
+        gr = reduce_padded_grads(grad, N, meta[0], with_depth=depth_grad,
+                                 sort_slices=reduce_slices)
+        d_means2d = torch.stack([gr["dmx"], gr["dmy"]], dim=-1)
+        d_conics = torch.stack([gr["dca"], gr["dcb"], gr["dcc"]], dim=-1)
+        d_colors = torch.stack([gr["dr"], gr["dg"], gr["db"]], dim=-1)
+        return d_means2d, d_conics, d_colors, gr["dop"], gr["ddepth"], None, None
 
 
 def rasterize_tiled(
@@ -203,20 +363,33 @@ def rasterize_tiled(
     sort_buckets: int = 0,
     sort_bands: int = 0,
     with_stats: bool = False,
+    grad_buffer_frac: float = 1.0,
+    reduce_slices: int = 0,
+    depth_grad: bool = True,
 ):
     """Tiled rasterization: binning + CUDA kernels (plain versions for CPU
     tensors). Returns (image (H, W, 3), alpha (H, W), depth (H, W)), plus a
     stats dict (n_isect, n_dropped, n_budget_dropped, n_grad_dropped) with
-    ``with_stats``. ``class_budgets``, ``depth_bits``, ``sort_buckets`` and
-    ``sort_bands`` are not ported yet and raise ``NotImplementedError``."""
+    ``with_stats``; differentiable with respect to means2d, conics, colors,
+    opacities and depths through the backward kernel.
+
+    ``grad_buffer_frac`` sizes the gradient stream (``grad_cap``);
+    ``n_grad_dropped`` is the forward's conservative bound on what it
+    drops. ``reduce_slices = K > 1`` reduces the stream in K sorted slices.
+    ``depth_grad=False`` declares that the depth output is never
+    differentiated: d_depths comes back zero and the reduce carries one
+    payload row less. ``class_budgets``, ``depth_bits``, ``sort_buckets``
+    and ``sort_bands`` are not ported yet and raise
+    ``NotImplementedError``."""
     ts = tile_size
     if ts * ts not in (64, 256, 1024):
         raise ValueError("tile_size must be 8, 16, or 32")
     check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
     ntx = cdiv(width, ts)
     nty = cdiv(height, ts)
-    gcap = grad_cap(means2d.shape[0], max_tiles_per_gaussian, chunk)
-    cfg = (width, height, ts, chunk, max_tiles_per_gaussian, gcap)
+    gcap = grad_cap(means2d.shape[0], max_tiles_per_gaussian, chunk, grad_buffer_frac)
+    cfg = (width, height, ts, chunk, max_tiles_per_gaussian, gcap, bool(depth_grad),
+           int(reduce_slices))
     out, n_isect, n_dropped, n_budget_dropped, n_grad_dropped = _RasterizeTiled.apply(
         means2d, conics, colors, opacities, depths, radii, cfg)
 
@@ -235,3 +408,27 @@ def rasterize_tiled(
             "n_grad_dropped": n_grad_dropped,
         }
     return rgb, alpha_img, depth_img
+
+
+def rasterize_grad_meta(means2d, conics, colors, opacities, depths, radii, width,
+                        height, tile_size: int = 16, chunk: int = 256,
+                        max_tiles_per_gaussian: int = 16, class_budgets=None,
+                        depth_bits: int = 0, grad_buffer_frac: float = 1.0,
+                        sort_buckets: int = 0, sort_bands: int = 0):
+    """Exact gradient-stream occupancy of one render: ``(n_written,
+    n_dropped, grad_cap)`` as Python ints, from binning, the forward and one
+    backward sweep with unit cotangents (occupancy depends on the segments,
+    not on the cotangent values). Counterpart of ``rasterize_pallas.py:1120``;
+    it sizes ``grad_buffer_frac``."""
+    check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
+    ts = tile_size
+    N = means2d.shape[0]
+    gcap = grad_cap(N, max_tiles_per_gaussian, chunk, grad_buffer_frac)
+    with torch.no_grad():
+        b = isect_and_sort(means2d, conics, colors, opacities, depths, radii,
+                           width, height, ts, chunk, max_tiles_per_gaussian)
+        out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, ts, cdiv(width, ts), chunk)
+        _, meta = bwd_tiles(b.tile_starts, b.counts, b.sorted_soa, torch.ones_like(out),
+                            out, ts, cdiv(width, ts), chunk, N, gcap)
+    n_written, n_dropped = (int(x) for x in meta.tolist())
+    return n_written, n_dropped, gcap

@@ -67,13 +67,20 @@ def render(
     sort_bands: int = 0,
     rasterize_mode: str = "classic",
     with_stats: bool = False,
+    grad_buffer_frac: float = 1.0,
+    reduce_slices: int = 0,
+    depth_grad: bool = True,
     device: DeviceLike = None,
 ) -> RenderOut:
     """Render one view on ``device`` (CUDA unless given; inputs are moved
-    there). Parameters are *raw* (log scales, logit opacities, unnormalized
-    quats); sh_coeffs (N, K, 3) with K >= (sh_degree+1)^2.
+    there), differentiable with respect to the parameters and the view.
+    Parameters are *raw* (log scales, logit opacities, unnormalized quats);
+    sh_coeffs (N, K, 3) with K >= (sh_degree+1)^2.
     ``rasterize_mode="antialiased"`` multiplies opacity by the covariance
-    compensation factor."""
+    compensation factor. ``grad_buffer_frac``, ``reduce_slices`` and
+    ``depth_grad`` (cuda backend) size and shape the backward's gradient
+    reduce; ``depth_grad=False`` promises that the depth output is never
+    differentiated (see ``rasterize_cuda.rasterize_tiled``)."""
     backend = resolve_backend(backend)
     dev = resolve_device(device)
 
@@ -102,7 +109,8 @@ def render(
             max_tiles_per_gaussian=max_tiles_per_gaussian,
             class_budgets=class_budgets, depth_bits=depth_bits,
             sort_buckets=sort_buckets, sort_bands=sort_bands,
-            with_stats=with_stats)
+            with_stats=with_stats, grad_buffer_frac=grad_buffer_frac,
+            reduce_slices=reduce_slices, depth_grad=depth_grad)
         if with_stats:
             image, alpha_img, depth_img, stats = res
         else:
@@ -142,6 +150,37 @@ def project_and_shade(means, quats, log_scales, logit_opacities, sh_coeffs,
     dirs = means - cam_pos[None, :]
     dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-12)
     return proj, sh_to_color(sh_degree, sh_coeffs, dirs), opac
+
+
+def render_grad_meta(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
+                     width: int, height: int, sh_degree: int = 3, tile_size: int = 16,
+                     max_tiles_per_gaussian: int = 16, raster_chunk: int = 256,
+                     class_budgets=None, depth_bits: int = 0,
+                     grad_buffer_frac: float = 1.0, sort_buckets: int = 0,
+                     sort_bands: int = 0, rasterize_mode: str = "classic",
+                     device: DeviceLike = None):
+    """Exact gradient-stream occupancy ``(n_written, n_dropped, grad_cap)``
+    of one view through the cuda backend: the probe that sizes
+    ``grad_buffer_frac`` (``rasterize_cuda.rasterize_grad_meta``)."""
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import rasterize_grad_meta
+
+    dev = resolve_device(device)
+
+    def on_dev(x):
+        x = x if torch.is_tensor(x) else np.array(x, np.float32)
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    with torch.no_grad():
+        proj, colors, opac = project_and_shade(
+            *(on_dev(x) for x in (means, quats, log_scales, logit_opacities, sh_coeffs,
+                                  viewmat, K)),
+            width, height, sh_degree=sh_degree, rasterize_mode=rasterize_mode)
+    return rasterize_grad_meta(
+        proj.means2d, proj.conics, colors, opac, proj.depths, proj.radii, width, height,
+        tile_size=tile_size, chunk=raster_chunk,
+        max_tiles_per_gaussian=max_tiles_per_gaussian, class_budgets=class_budgets,
+        depth_bits=depth_bits, grad_buffer_frac=grad_buffer_frac,
+        sort_buckets=sort_buckets, sort_bands=sort_bands)
 
 
 def compose_render_mode(render_mode: str, image, alpha, depth) -> torch.Tensor:

@@ -21,6 +21,12 @@ SoA row layout (16, M):
    6 r | 7 g | 8 b | 9 depth | 10 const-one | 11 gauss_id (exact f32) |
    12..15 zero
 
+The gradient reduce of the backward pass lives here too
+(``reduce_padded_grads``): one stable ``torch.sort`` of the masked gaussian
+id key per slice of the backward kernel's stream, ``pack_rows`` (CUDA
+kernel 5) gathering the payload rows through that sort's permutation, and
+``segment_sum_sorted`` (``ops/segsum.py``, CUDA kernel 4).
+
 Only the dense slot layout is ported; the compact footprint-class layout,
 quantized depth keys, bucket partition and band-split sorts raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -368,3 +374,128 @@ def isect_and_sort(
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=counts,
                        n_isect=n_isect, n_dropped=n_dropped.to(n_isect.dtype),
                        n_budget_dropped=zero)
+
+
+def pack_rows_plain(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Tensor,
+                    n_valid: torch.Tensor, col0: int, n_rows: int,
+                    sentinel: float) -> torch.Tensor:
+    """Plain PyTorch version of the ``pack_rows`` kernel (arguments as
+    there)."""
+    M = perm.shape[0]
+    m_out = cdiv(M, _PACK_C) * _PACK_C
+    out = torch.zeros((16, m_out), dtype=torch.float32, device=src.device)
+    out[0] = sentinel
+    out[0, :M] = key_sorted.to(torch.float32)
+    cols = col0 + perm
+    ok = cols < n_valid.reshape(())
+    out[1:n_rows, :M] = torch.where(ok, src[1:n_rows, cols], 0.0)
+    return out
+
+
+def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows):
+    if src.dtype != torch.float32 or src.dim() != 2 or src.shape[0] != 16:
+        raise ValueError(f"src must be (16, C) float32, got {tuple(src.shape)} {src.dtype}")
+    M = perm.shape[0]
+    if perm.dtype != torch.int64 or perm.dim() != 1:
+        raise ValueError("perm must be (M,) int64")
+    if key_sorted.dtype != torch.int32 or tuple(key_sorted.shape) != (M,):
+        raise ValueError(f"key_sorted must be ({M},) int32")
+    if n_valid.dtype != torch.int32 or n_valid.numel() != 1:
+        raise ValueError("n_valid must be a one-element int32 tensor")
+    if not (src.device == perm.device == key_sorted.device == n_valid.device):
+        raise ValueError("src, perm, key_sorted and n_valid must be on one device")
+    if not (src.is_contiguous() and perm.is_contiguous() and key_sorted.is_contiguous()):
+        raise ValueError("src, perm and key_sorted must be contiguous")
+    if not 1 <= n_rows <= 16:
+        raise ValueError("n_rows must be in [1, 16]")
+    if not 0 <= col0 <= src.shape[1] - M:
+        raise ValueError("the slice [col0, col0 + M) must lie inside src")
+
+
+def pack_rows(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Tensor,
+              n_valid: torch.Tensor, col0: int, n_rows: int,
+              sentinel: float) -> torch.Tensor:
+    """The segsum-ready (16, cdiv(M, 8192) * 8192) buffer of the slice
+    [col0, col0 + M) of a (16, C) stream in key order: row 0 the ascending
+    int32 ``key_sorted`` as exact floats (``sentinel`` past M), rows
+    1..n_rows-1 the stream's rows gathered through ``perm`` (the sort's
+    permutation, slice-local) where ``col0 + perm < n_valid`` and 0
+    elsewhere, rows n_rows..15 zero. Equal to the JAX ``pack_rows`` of the
+    permuted, masked rows. CUDA tensors run the kernel
+    (``csrc/pack_rows.cu``), CPU tensors the plain version."""
+    _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows)
+    if src.device.type == "cpu":
+        return pack_rows_plain(src, perm, key_sorted, n_valid, col0, n_rows, sentinel)
+    if src.device.type != "cuda":
+        raise ValueError(f"pack_rows runs on CUDA or CPU tensors, not {src.device}")
+    fn = _build.load("pack_rows").gs_pack_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M = perm.shape[0]
+    m_out = cdiv(M, _PACK_C) * _PACK_C
+    out = torch.empty((16, m_out), dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), src.shape[1], perm.data_ptr(), key_sorted.data_ptr(),
+                n_valid.data_ptr(), col0, M, m_out, n_rows, sentinel, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pack_rows kernel launch failed: cudaError {rc}")
+    pack_rows.launches += 1
+    return out
+
+
+pack_rows.launches = 0
+
+def sorted_gid_key(grad_soa: torch.Tensor, n_gaussians: int, n_valid: torch.Tensor,
+                   col0: int, m: int):
+    """The reduce's sort of the stream slice [col0, col0 + m): the int32 key
+    ``where(pos < n_valid, gaussian id, n_gaussians)``, stably sorted, and
+    its slice-local permutation (int64)."""
+    pos = torch.arange(col0, col0 + m, device=grad_soa.device)
+    key = torch.where(pos < n_valid.reshape(1), grad_soa[0, col0:col0 + m].to(torch.int32),
+                      torch.full_like(pos, n_gaussians, dtype=torch.int32))
+    return torch.sort(key, stable=True)
+
+
+GRAD_KEYS = ("dmx", "dmy", "dca", "dcb", "dcc", "dop", "dr", "dg", "db", "ddepth")
+
+
+def reduce_padded_grads(grad_soa: torch.Tensor, n_gaussians: int,
+                        n_written: torch.Tensor, with_depth: bool = True,
+                        sort_slices: int = 0) -> dict:
+    """Per-gaussian sums of the backward kernel's gradient stream
+    (``tiling.py:893-951`` of the JAX package).
+
+    ``grad_soa`` (16, pcap): row 0 the gaussian id of each entry (exact
+    float), rows 1..10 [dmx, dmy, dA, dB, dC, dop, dr, dg, db, ddepth];
+    entries at or past ``n_written`` (a one-element int32 tensor) are not
+    read. Returns a dict of (N,) float32 tensors keyed ``GRAD_KEYS``.
+
+    Each of K = ``max(sort_slices, 1)`` contiguous slices (one when pcap is
+    not divisible by K) is reduced on its own and the K (16, N) sums added:
+    one stable ``torch.sort`` of the int32 key ``where(pos < n_written, id,
+    N)``, ``pack_rows`` through its permutation, ``segment_sum_sorted``.
+    ``with_depth=False`` leaves the ddepth payload out and returns zero
+    ddepth (valid when the depth output has no cotangent)."""
+    from gaussian_splatting_tpu_torch.ops.segsum import segment_sum_sorted
+
+    N = n_gaussians
+    pcap = grad_soa.shape[1]
+    n_rows = 11 if with_depth else 10
+    K = max(int(sort_slices), 1)
+    if pcap % K != 0:
+        K = 1
+    m = pcap // K
+    n_valid = n_written.reshape(1).to(torch.int32)
+    sums = None
+    for i in range(K):
+        key_sorted, perm = sorted_gid_key(grad_soa, N, n_valid, i * m, m)
+        stacked = pack_rows(grad_soa, perm, key_sorted, n_valid, i * m, n_rows, float(N))
+        part = segment_sum_sorted(stacked, N)
+        sums = part if sums is None else sums + part
+    out = {k: sums[1 + j] for j, k in enumerate(GRAD_KEYS[:9])}
+    out["ddepth"] = (sums[10] if with_depth
+                     else torch.zeros((N,), dtype=torch.float32, device=grad_soa.device))
+    return out

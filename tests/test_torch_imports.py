@@ -44,11 +44,19 @@ def _arrays(n=3):
             "features_rest": np.zeros((n, 15, 3), np.float32)}
 
 
+def _train_arrays(n=3):
+    arrays = {}
+    for k, v in _arrays(n).items():
+        arrays.update({f"params/{k}": v, f"adam_mu/{k}": v, f"adam_nu/{k}": v})
+    return dict(arrays, alive=np.ones(n, bool), xyz_grad_accum=np.zeros((n, 3), np.float32),
+                xyz_grad_count=np.zeros((n, 1), np.float32),
+                max_radii2d=np.zeros(n, np.int32), adam_step=np.int32(0),
+                iteration=np.int32(0))
+
+
 def _checkpoint(tmp_path):
     path = tmp_path / "ck.npz"
-    arrays = {f"params/{k}": v for k, v in _arrays().items()}
-    np.savez(path, alive=np.ones(3, bool), meta_json=np.frombuffer(b"{}", np.uint8),
-             **arrays)
+    np.savez(path, meta_json=np.frombuffer(b"{}", np.uint8), **_train_arrays())
     return str(path)
 
 
@@ -56,12 +64,26 @@ def _entry_points(tmp_path):
     from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
     from gaussian_splatting_tpu_torch.models.gaussians import empty_state, state_from_numpy
     from gaussian_splatting_tpu_torch.ops.facade import GaussianRasterizer
-    from gaussian_splatting_tpu_torch.ops.render import render
-    from gaussian_splatting_tpu_torch.training.checkpoint import load_checkpoint
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.ops.render import render, render_grad_meta
+    from gaussian_splatting_tpu_torch.training.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.step import make_train_step, pose_state_init
 
     a = _arrays()
     sh = np.concatenate([a["features_dc"], a["features_rest"]], 1)
+    eye3 = np.eye(3, dtype=np.float32)
     return {
+        "make_train_step": lambda: make_train_step(TrainingConfig(), 16, 16, 3, "auto", 2.0),
+        "train_state_from_numpy": lambda: train_state_from_numpy(_train_arrays()),
+        # A state loaded with the defaults is on the card; saving it needs one.
+        "save_checkpoint": lambda: save_checkpoint(
+            str(tmp_path / "out.npz"), train_state_from_numpy(_train_arrays())),
+        "pose_state_init": lambda: pose_state_init(4),
+        "render_grad_meta": lambda: render_grad_meta(
+            a["means"], a["quats"], a["log_scales"], a["logit_opacities"], sh,
+            np.eye(4, dtype=np.float32), eye3, 16, 16),
         "GaussianRasterizer": lambda: GaussianRasterizer(16, 16),
         "render": lambda: render(a["means"], a["quats"], a["log_scales"],
                                  a["logit_opacities"], sh, np.eye(4, dtype=np.float32),
@@ -76,7 +98,9 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("name", ["GaussianRasterizer", "render", "load_checkpoint",
                                   "state_from_numpy", "empty_state", "look_at",
-                                  "make_intrinsics"])
+                                  "make_intrinsics", "make_train_step",
+                                  "train_state_from_numpy", "save_checkpoint",
+                                  "pose_state_init", "render_grad_meta"])
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = _entry_points(tmp_path)[name]

@@ -1,7 +1,9 @@
 """PyTorch port, ``ops/rasterize_cuda.py`` and ``ops/rasterize_ref.py``
-against the JAX package. On the CPU the port's rasterizer runs the plain
-versions of its kernels; the JAX side runs its Pallas kernels in interpret
-mode. Tolerances are those of ``tests/test_rasterize_pallas.py:111-113``."""
+against the JAX package, forward and backward. On the CPU the port's
+rasterizer runs the plain versions of its kernels; the JAX side runs its
+Pallas kernels in interpret mode. Image tolerances are those of
+``tests/test_rasterize_pallas.py:111-113``, gradient tolerances those of
+``tests/test_rasterize_pallas.py:182``."""
 
 import numpy as np
 import pytest
@@ -119,13 +121,102 @@ def test_plain_forward_counts_evaluated_pairs(rng):
     assert int(pairs) < int(b.n_isect) * 256
 
 
-def test_backward_raises_until_the_training_slice(rng):
-    args = [t.requires_grad_(t.is_floating_point())
-            for t in to_torch(*screen_gaussians(rng, 20, 32, 32))]
-    img, alpha, depth = t_raster(*args, 32, 32, chunk=128)
-    assert img.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        img.sum().backward()
+def _grad_loss(img, alpha, depth, timg, with_depth):
+    """The loss of ``tests/test_rasterize_pallas.py:161-164`` (without its
+    depth term when the depth output is declared non-differentiable)."""
+    loss = ((img - timg) ** 2).sum() + 0.3 * (alpha ** 2).sum()
+    return loss + 0.05 * (depth ** 2).sum() if with_depth else loss
+
+
+@pytest.mark.parametrize("depth_grad", [True, False])
+def test_gradients_match_jax_pallas_and_oracle(rng, depth_grad):
+    """The backward (kernel 3's plain version + the reduce) against the JAX
+    ``rasterize_tiled(interpret=True)`` gradients and against autograd
+    through the port's oracle, at the tolerance of
+    ``tests/test_rasterize_pallas.py:182`` (atol 2e-4 of the largest
+    gradient, rtol 1e-3: the tiled and oracle stop rules differ at
+    pixels whose transmittance lands at 1e-4)."""
+    import jax
+    import jax.numpy as jnp
+
+    width, height = 48, 32
+    args = screen_gaussians(rng, 60, width, height)
+    timg = rng.uniform(size=(height, width, 3)).astype(np.float32)
+    radii = args[5]
+
+    def j_loss(*a):
+        img, alpha, depth = j_raster(*a, jnp.asarray(radii), width, height, tile_size=16,
+                                     chunk=128, interpret=True, depth_grad=depth_grad)
+        return _grad_loss(img, alpha, depth, jnp.asarray(timg), depth_grad)
+
+    j_g = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(*to_jax(*args[:5]))
+
+    def t_grads(fn):
+        xs = [x.requires_grad_(True) for x in to_torch(*args[:5])]
+        _grad_loss(*fn(xs), torch.as_tensor(timg), depth_grad).backward()
+        return [np.zeros(x.shape, np.float32) if x.grad is None else x.grad.numpy()
+                for x in xs]
+
+    t_g = t_grads(lambda xs: t_raster(*xs, torch.as_tensor(radii), width, height,
+                                      tile_size=16, chunk=128, depth_grad=depth_grad))
+    o_g = t_grads(lambda xs: t_oracle(*xs, torch.as_tensor(radii), width, height,
+                                      tile_size=16)[:3])
+    names = ["means2d", "conics", "colors", "opacities", "depths"]
+    for name, tg, jg, og in zip(names, t_g, j_g, o_g):
+        jg = np.asarray(jg)
+        assert np.isfinite(tg).all(), name
+        if name == "depths" and not depth_grad:
+            assert (tg == 0).all() and (jg == 0).all()
+            continue
+        for ref in (jg, og):
+            scale = np.abs(ref).max() + 1e-8
+            np.testing.assert_allclose(tg, ref, atol=2e-4 * scale, rtol=1e-3,
+                                       err_msg=f"grad mismatch: {name}")
+
+
+def test_starved_gradient_buffer_counts_drops(rng):
+    """At a starved ``grad_buffer_frac`` the backward drops whole chunks of
+    the stream and counts them as the JAX kernel does; the gradients that
+    remain are finite. ``rasterize_grad_meta`` gives the JAX package's
+    (n_written, n_dropped, grad_cap) at both fractions."""
+    from gaussian_splatting_tpu.ops.rasterize_pallas import rasterize_grad_meta as j_meta
+
+    width, height = 64, 48
+    args = screen_gaussians(rng, 150, width, height)
+    for frac in (1.0, 0.05):
+        j = tuple(int(x) for x in j_meta(*to_jax(*args), width, height, chunk=128,
+                                         grad_buffer_frac=frac, interpret=True))
+        t = rasterize_cuda.rasterize_grad_meta(*to_torch(*args), width, height, chunk=128,
+                                               grad_buffer_frac=frac)
+        assert t == j, frac
+    n_written, n_dropped, gcap = t
+    assert n_dropped > 0 and n_written == gcap
+    xs = [x.requires_grad_(True) for x in to_torch(*args[:5])]
+    img, alpha, _ = t_raster(*xs, torch.as_tensor(args[5]), width, height, chunk=128,
+                             grad_buffer_frac=0.05, depth_grad=False)
+    (img.sum() + alpha.sum()).backward()
+    assert all(bool(torch.isfinite(x.grad).all()) for x in xs)
+    assert any(bool((x.grad != 0).any()) for x in xs)
+
+
+def test_plain_backward_meta_and_sentinel_tail(rng):
+    """``bwd_tiles_plain`` writes one column per entry in SoA order (row 0
+    the gaussian id), pads to a whole chunk with sentinels and reports
+    [n_written, n_dropped] in chunks."""
+    width, height, chunk, N = 32, 32, 128, 40
+    args = to_torch(*screen_gaussians(rng, N, width, height))
+    b = rasterize_cuda.isect_and_sort(*args, width, height, 16, chunk, 16)
+    out, _ = rasterize_cuda.fwd_tiles_plain(b.tile_starts, b.counts, b.sorted_soa,
+                                            16, 2, chunk)
+    n = int(b.n_isect)
+    grad, meta = rasterize_cuda.bwd_tiles(b.tile_starts, b.counts, b.sorted_soa,
+                                          torch.ones_like(out), out, 16, 2, chunk, N,
+                                          4 * chunk)
+    kept = -(-n // chunk) * chunk
+    assert meta.tolist() == [kept, 0]
+    assert torch.equal(grad[0, :n], b.sorted_soa[11, :n])
+    assert (grad[0, n:kept] == N).all() and (grad[1:, n:kept] == 0).all()
+    assert (grad[11:, :kept] == 0).all()
 
 
 def test_fwd_tiles_checks_arguments():

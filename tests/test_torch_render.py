@@ -130,8 +130,9 @@ def test_load_jax_checkpoint_renders_the_same_image(rng, tmp_path):
                                      iteration=jnp.int32(7)),
                     extra={"scene_extent": 1.5})
 
-    state, meta = load_checkpoint(path, device="cpu")
-    assert meta == {"scene_extent": 1.5}
+    train_state, meta = load_checkpoint(path, device="cpu")
+    state = train_state.gauss
+    assert meta == {"scene_extent": 1.5} and int(train_state.iteration) == 7
     assert state.capacity == 128 and int(state.n_alive()) == 100
     for k in ("means", "quats", "log_scales", "logit_opacities", "features_dc",
               "features_rest"):
