@@ -4,7 +4,7 @@ kernels against its plain PyTorch version.
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (any failure exits nonzero and prints no result):
-1. build the five kernels in ``gaussian_splatting_tpu_torch/csrc/`` with
+1. build the eight kernels in ``gaussian_splatting_tpu_torch/csrc/`` with
    nvcc for sm_90a (one process per source, all at once);
 2. the bench scene of ``bench.py`` (numpy seed 0, 1M screen-space
    gaussians, 1920x1080, dense binning, chunk 256): intersection counts
@@ -13,7 +13,12 @@ Phases (any failure exits nonzero and prints no result):
    against their plain versions; then the backward: ``bwd_tiles`` + the
    kernel reduce against ``bwd_tiles_plain`` + the plain reduce under a
    seeded cotangent, and ``pack_rows`` and ``segsum`` against their plain
-   versions on the kernel's gradient stream;
+   versions on the kernel's gradient stream; then the queue path: the
+   queue forward equal to the loop forward bit for bit, the queue backward
+   + reduce against the plain versions, and the ``bench.py`` forward +
+   backward workload with ``queue=True`` (the queue kernels must launch,
+   the loop kernels not) beside ``queue=False``, with equal occupancy
+   probes;
 3. a small 3D scene rendered through the kernels and through the PyTorch
    oracle, which must agree, images and gradients of every parameter;
 4. the render path: a seeded 3D scene of 1,000,000 gaussians with SH
@@ -26,11 +31,20 @@ Phases (any failure exits nonzero and prints no result):
    views at 1920x1080, from that scene with seeded noise on means,
    features_dc and logit opacities, towards the scene's own renders; the
    loss must descend, everything stay finite, no gradient be dropped, and
-   every kernel's launch count rise during the steps;
+   every kernel of the path launch during the steps;
+5b. the bucket path at training view 0: the partition kernel against its
+   plain version on the binning's own partition input (exact), the bucket
+   binning's n_isect + n_bucket_dropped equal to the dense n_isect and,
+   with no bucket drop, its forward equal to the dense one bit for bit and
+   its backward + reduce against the dense plain sums and meta;
+   then 4 steps of ``make_train_step(TrainingConfig(sort_buckets=8))``
+   from the same noisy state: the loss must descend and the partition
+   launch once a view in every step;
 6. timings with CUDA events (medians) at the main paths' shapes: render,
-   training step, one view's forward + backward, the ``bench.py``
-   forward + backward workload, and each kernel against its bound, its
-   plain version and, where there is one, a PyTorch library call;
+   training step (dense and bucket), one view's forward + backward, the
+   ``bench.py`` forward + backward workload (loop and queue), binning
+   (dense and bucket), and each kernel against its bound, its plain
+   version and, where there is one, a PyTorch library call;
 7. one render and one training step traced with ``torch.profiler``: device
    kernels launched, the device's busy and idle share, the kernels taking
    most time.
@@ -51,6 +65,9 @@ import numpy as np
 WIDTH, HEIGHT, TILE, CHUNK, MAX_T = 1920, 1080, 16, 256, 16
 N_GAUSSIANS = 1_000_000
 TRAIN_STEPS = 6
+# The bucket path: sort_buckets 8 at the default partition headroom 1.5
+# (quantum 96 of a 512-slot chunk's mean share 64 per bucket).
+BUCKETS, BUCKET_HEADROOM, BUCKET_STEPS = 8, 1.5, 4
 # The cube [-1, 1]^3 the seeded scene fills: the trainer's scene extent.
 SCENE_EXTENT = 2.0
 # Intersection counts of the bench scene recorded by the JAX package
@@ -103,7 +120,8 @@ BWD_GRAD_FLOPS = 53
 GRAD_ATOL_FRAC, GRAD_RTOL = 2e-4, 1e-3
 GRAD_L2_RTOL, GRAD_L2_SMALL_RTOL = 1e-4, 5e-3
 SEGSUM_ATOL_FRAC = 1e-5
-KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum")
+KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
+           "rasterize_fwd_q", "rasterize_bwd_q", "partition")
 
 
 def log(msg):
@@ -134,12 +152,15 @@ def cuda_ms(fn, reps=7, warmup=2):
 
 
 def launch_counters():
-    """The launch-count owners of the five kernels, by kernel name."""
-    from gaussian_splatting_tpu_torch.ops import rasterize_cuda, segsum, tiling
+    """The launch-count owners of the eight kernels, by kernel name."""
+    from gaussian_splatting_tpu_torch.ops import partition, rasterize_cuda, segsum, tiling
 
     return {"pack_soa": tiling.pack_soa, "rasterize_fwd": rasterize_cuda.fwd_tiles,
             "rasterize_bwd": rasterize_cuda.bwd_tiles, "pack_rows": tiling.pack_rows,
-            "segsum": segsum.segment_sum_sorted}
+            "segsum": segsum.segment_sum_sorted,
+            "rasterize_fwd_q": rasterize_cuda.fwd_tiles_q,
+            "rasterize_bwd_q": rasterize_cuda.bwd_tiles_q,
+            "partition": partition.partition_soa}
 
 
 def reset_launches():
@@ -261,7 +282,8 @@ def compare_counts(args_dev, b):
 def compare_kernels(b, table, tag):
     """Both forward-path kernels against their plain versions on one
     binning ``b``: pack exact, forward atol 1e-5 (rgb, sum_w) / 1e-4
-    (depth). Returns (pack_err, fwd_err, fwd_out, pairs)."""
+    (depth). Returns (pack_err, fwd_err, fwd_out, pairs,
+    plain_out)."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import fwd_tiles, fwd_tiles_plain
@@ -295,7 +317,7 @@ def compare_kernels(b, table, tag):
         fail(f"[{tag}] forward kernel disagrees with fwd_tiles_plain")
     if not bool(torch.isfinite(k_out).all()):
         fail(f"[{tag}] forward kernel output is not finite")
-    return pack_err, max(err_rgbw, err_depth), k_out, int(pairs)
+    return pack_err, max(err_rgbw, err_depth), k_out, int(pairs), p_out
 
 
 def plain_reduce(grad, n, n_written, with_depth):
@@ -407,10 +429,196 @@ def compare_backward(b, fwd_out, n, tag, seed=0):
     if not bool((seg_d <= SEGSUM_ATOL_FRAC * seg_scale).all()):
         fail(f"[{tag}] segsum kernel disagrees with segment_sum_sorted_plain")
     return {"bwd_err": max(s["max_err"] for s in stats.values()),
-            "pack_rows_err": pack_rows_err,
+            "p_sums": p_sums, "p_meta": p_meta, "pack_rows_err": pack_rows_err,
             "segsum_err": segsum_err, "active": int(active), "gout": gout,
             "grad": k_grad, "meta": k_meta, "key": key, "perm": perm, "stacked": k_st,
             "gcap": gcap}
+
+
+def queue_for(b):
+    """The chunk queue of binning ``b`` at the rasterizer's capacity
+    ``w_cap = N max_t // chunk + T``, n_work as a (1,) tensor."""
+    from gaussian_splatting_tpu_torch.ops.tiling import chunk_queue
+
+    wtile, cum, n_work = chunk_queue(b.counts, CHUNK, N_GAUSSIANS * MAX_T // CHUNK
+                                     + b.counts.shape[0])
+    return wtile, cum, n_work.reshape(1)
+
+
+def compare_queue(b, fwd_out, plain_out, bwd, n, tag):
+    """The queue kernels on binning ``b``: the queue forward (the kernel
+    writes empty tiles' zero blocks) equal to the loop kernel's ``fwd_out``
+    bit for bit, hence inside the loop forward's gates against the plain
+    version's ``plain_out``; the queue backward + kernel reduce against the
+    plain sums and meta of ``compare_backward`` (``bwd``), under the
+    backward's gates. The queue's plain versions are ``check_queue`` and
+    the loop's plain versions on the same inputs."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        bwd_tiles_q, check_queue, fwd_tiles_q)
+    from gaussian_splatting_tpu_torch.ops.tiling import reduce_padded_grads
+
+    ntx = -(-WIDTH // TILE)
+    wtile, cum, n_work = queue_for(b)
+    check_queue(wtile, cum, n_work, b.counts, CHUNK)
+    q_out = fwd_tiles_q(wtile, cum, b.tile_starts, b.counts, n_work, b.sorted_soa, TILE,
+                        ntx, CHUNK)
+    torch.cuda.synchronize()
+    fwd_err = float((q_out - plain_out).abs().max())
+    same = torch.equal(q_out, fwd_out)
+    log(f"[{tag}] queue forward kernel ({int(n_work)} work items, "
+        f"{int((b.counts == 0).sum())} empty tiles): equal to the loop kernel bit for bit: "
+        f"{same}; max |diff| against plain {fwd_err:.3e}")
+    if not same:
+        fail(f"[{tag}] the queue forward differs from the loop forward")
+    k_grad, k_meta = bwd_tiles_q(wtile, cum, b.tile_starts, b.counts, n_work, b.sorted_soa,
+                                 bwd["gout"], fwd_out, TILE, ntx, CHUNK, n, bwd["gcap"])
+    k_sums = reduce_padded_grads(k_grad, n, k_meta[0], with_depth=True)
+    torch.cuda.synchronize()
+    del k_grad
+    stats, ok = grad_errors(k_sums, bwd["p_sums"])
+    km, pm = k_meta.tolist(), bwd["p_meta"].tolist()
+    finite = all(bool(torch.isfinite(v).all()) for v in k_sums.values())
+    log(f"[{tag}] queue backward kernel + reduce vs plain: meta kernel {km}, plain {pm}")
+    for key, st in stats.items():
+        log(f"[{tag}]   {key}: " + ", ".join(f"{k} {v:.3e}" for k, v in st.items()))
+    if km != pm or not ok or not finite:
+        fail(f"[{tag}] queue backward kernel disagrees with bwd_tiles_plain")
+    return {"fwd_q_err": fwd_err, "bwd_q_err": max(st["max_err"] for st in stats.values())}
+
+
+def compare_partition(sargs, b, fwd_out, bwd, tag):
+    """Phase 5b, checks: the partition kernel against its plain version on
+    the bucket binning's own input at these screen-space inputs (out,
+    counts and drops exact); the bucket binning's kept + dropped equal to
+    the dense binning ``b``'s n_isect and, with no drop, on the bucket
+    (gapped) layout: the forward equal to the dense ``fwd_out`` bit for
+    bit, and the backward kernel + kernel reduce under ``compare_backward``'s
+    cotangent against its plain sums and meta (``bwd``) under the
+    backward's gates. Returns the partition's input, quantum, output, error
+    and drop count."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.partition import (
+        partition_soa, partition_soa_plain, quantum_for)
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import bwd_tiles, fwd_tiles
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        BUCKET_C, bucket_partition_input, isect_and_sort, reduce_padded_grads, slot_tiles)
+
+    means2d, conics, _, opac, _, radii = sargs
+    tile_key, _, T = slot_tiles(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE, MAX_T)
+    packed = bucket_partition_input(tile_key, quantity_table(*sargs[:5]), T)
+    del tile_key
+    q = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
+    k_out = partition_soa(packed, BUCKETS, q, sentinel=float(T), C=BUCKET_C,
+                          drop_key_above=float(T))
+    nv = torch.full((1,), packed.shape[1], dtype=torch.int32, device=packed.device)
+    p_out = partition_soa_plain(packed, BUCKETS, q, key_row=0, sentinels=(float(T),) * BUCKETS,
+                                C=BUCKET_C, bucket_shift=0, n_valid=nv,
+                                drop_key_above=float(T))
+    torch.cuda.synchronize()
+    err = max(float((a.double() - c.double()).abs().max()) for a, c in zip(k_out, p_out))
+    exact = all(torch.equal(a, c) for a, c in zip(k_out, p_out))
+    del p_out
+    log(f"[{tag}] partition kernel, input (16, {packed.shape[1]}), B {BUCKETS}, quantum {q}, "
+        f"cap {k_out[0].shape[2]}: equal to plain: {exact}; counts {k_out[1].tolist()}, "
+        f"drops {k_out[2].tolist()}")
+    if not exact:
+        fail(f"[{tag}] partition kernel differs from partition_soa_plain ({err})")
+
+    bb = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=BUCKETS,
+                        bucket_headroom=BUCKET_HEADROOM)
+    n_b, n_drop, n_dense = int(bb.n_isect), int(bb.n_bucket_dropped), int(b.n_isect)
+    log(f"[{tag}] bucket binning: n_isect {n_b} + n_bucket_dropped {n_drop} = {n_b + n_drop} "
+        f"(dense n_isect {n_dense}); tile_starts[T] {int(bb.tile_starts[-1])}")
+    if n_b + n_drop != n_dense or int(k_out[2].sum()) != n_drop:
+        fail(f"[{tag}] the bucket binning lost or gained intersections")
+    if n_drop == 0:
+        ntx = -(-WIDTH // TILE)
+        bo = fwd_tiles(bb.tile_starts, bb.counts, bb.sorted_soa, TILE, ntx, CHUNK)
+        torch.cuda.synchronize()
+        same = torch.equal(bo, fwd_out)
+        log(f"[{tag}] forward on the bucket layout equal to the dense one bit for bit: {same}")
+        if not same:
+            fail(f"[{tag}] the bucket layout's forward differs from the dense one")
+        del bo
+        # The segments are the dense ones, so the sums agree up to atomic
+        # order and the chunk-rounded meta exactly.
+        k_grad, k_meta = bwd_tiles(bb.tile_starts, bb.counts, bb.sorted_soa, bwd["gout"],
+                                   fwd_out, TILE, ntx, CHUNK, N_GAUSSIANS, bwd["gcap"])
+        k_sums = reduce_padded_grads(k_grad, N_GAUSSIANS, k_meta[0], with_depth=True)
+        torch.cuda.synchronize()
+        del k_grad
+        stats, ok = grad_errors(k_sums, bwd["p_sums"])
+        km, pm = k_meta.tolist(), bwd["p_meta"].tolist()
+        finite = all(bool(torch.isfinite(v).all()) for v in k_sums.values())
+        log(f"[{tag}] backward kernel + reduce on the bucket layout vs the dense plain sums: "
+            f"meta kernel {km}, plain {pm}")
+        for key, st in stats.items():
+            log(f"[{tag}]   {key}: " + ", ".join(f"{k} {v:.3e}" for k, v in st.items()))
+        if km != pm or not ok or not finite:
+            fail(f"[{tag}] the backward on the bucket layout disagrees with the dense plain sums")
+        del k_sums
+    del bb
+    return {"packed": packed, "q": q, "T": T, "out": k_out, "err": err, "n_drop": n_drop}
+
+
+def bucket_train_phase(dev, scene, views, images):
+    """Phase 5b, the bucket path: BUCKET_STEPS steps of ``make_train_step``
+    with ``sort_buckets=BUCKETS`` from the dense phase's noisy state. The
+    loss must descend, nothing be dropped from the gradient stream, and the
+    partition launch once a view in every step. Returns the step function,
+    the state, the per-step device times and the launches of the run."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.step import ViewBatch, make_train_step
+
+    config = TrainingConfig(backend="auto", sort_buckets=BUCKETS,
+                            partition_headroom=BUCKET_HEADROOM)
+    step = make_train_step(config, WIDTH, HEIGHT, 3, config.backend, SCENE_EXTENT, device=dev)
+    state = train_state_from_numpy(noisy_train_arrays(scene, seed=1), device=dev)
+    batch = ViewBatch(images=images,
+                      viewmats=torch.stack([v["world_view_transform"] for v in views]),
+                      Ks=torch.stack([v["K"] for v in views]))
+    losses, step_ms = [], []
+    reset_launches()
+    for i in range(BUCKET_STEPS):
+        before = read_launches()["partition"]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        rose = read_launches()["partition"] - before
+        log(f"[bucket] step {i}: loss {losses[-1]:.6f}, psnr {float(m['psnr']):.3f}, n_isect "
+            f"{int(m['stats/n_isect'])}, n_budget_dropped (bucket overflow) "
+            f"{int(m['stats/n_budget_dropped'])}, n_grad_dropped "
+            f"{int(m['stats/n_grad_dropped'])}, partition launches {rose}, "
+            f"{step_ms[-1]:.3f} ms")
+        if not np.isfinite(losses[-1]) or int(m["stats/n_grad_dropped"]) > 0:
+            fail(f"[bucket] step {i}: loss not finite or gradient entries dropped")
+        if rose != images.shape[0]:
+            fail(f"[bucket] step {i}: the partition launched {rose} times, not once a view")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[bucket] {BUCKET_STEPS} steps, sort_buckets {BUCKETS}, headroom {BUCKET_HEADROOM}: "
+        f"launches {launches}")
+    for k in ("means", "quats", "log_scales", "logit_opacities", "features_dc",
+              "features_rest"):
+        if not bool(torch.isfinite(getattr(state.gauss.params, k)).all()):
+            fail(f"[bucket] parameter {k} is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"[bucket] the loss did not descend: {losses}")
+    path = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum", "partition")
+    if min(launches[k] for k in path) < 1:
+        fail(f"[bucket] a kernel of the bucket path never launched: {launches}")
+    return step, state, batch, step_ms, launches
 
 
 def trace(fn, tag):
@@ -500,35 +708,78 @@ def bench_phase(dev):
     log(f"[bench] n_isect against the CPU binning's {BENCH_CPU_N_ISECT}: "
         f"{n_isect - BENCH_CPU_N_ISECT:+d}")
     compare_counts(args, b)
-    _, _, fwd_out, _ = compare_kernels(b, quantity_table(*args[:5]), "bench")
+    _, _, fwd_out, _, plain_out = compare_kernels(b, quantity_table(*args[:5]), "bench")
     bwd = compare_backward(b, fwd_out, N_GAUSSIANS, "bench")
-    del b, fwd_out, bwd
+    compare_queue(b, fwd_out, plain_out, bwd, N_GAUSSIANS, "bench")
+    del b, fwd_out, plain_out, bwd
+    drops = {B: int(isect_and_sort(*args, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=B,
+                                   bucket_headroom=BUCKET_HEADROOM).n_bucket_dropped)
+             for B in (BUCKETS, 2 * BUCKETS)}
+    log(f"[bench] bucket binning at headroom {BUCKET_HEADROOM}, n_bucket_dropped by "
+        f"sort_buckets: {drops}")
     torch.cuda.empty_cache()
 
     # The bench.py workload (bench.py:149-168): forward + backward of
     # sum(img) + sum(alpha) with depth_grad=False; dense binning here, as
-    # compact class budgets are not ported.
+    # compact class budgets are not ported. queue=True is its
+    # GS_BENCH_QUEUE=1 variant (bench.py:81): the queue path.
     diff = [x.clone().requires_grad_(True) for x in args[:5]]
 
-    def fwd_bwd():
+    def fwd_bwd(queue):
         for x in diff:
             x.grad = None
         img, alpha, _ = rasterize_tiled(*diff, args[5], WIDTH, HEIGHT, tile_size=TILE,
                                         chunk=CHUNK, max_tiles_per_gaussian=MAX_T,
-                                        depth_grad=False)
+                                        depth_grad=False, queue=queue)
         (img.sum() + alpha.sum()).backward()
+        return img.detach(), [x.grad for x in diff]
 
-    fb_ms = cuda_ms(fwd_bwd, reps=5)
-    nw, nd, gcap = rasterize_grad_meta(*args, WIDTH, HEIGHT, tile_size=TILE, chunk=CHUNK,
-                                       max_tiles_per_gaussian=MAX_T)
-    log(f"[bench] bench.py fwd+bwd workload (dense binning): {fb_ms:.3f} ms, "
-        f"{WIDTH * HEIGHT / (fb_ms / 1e3):.1f} pixels/s; n_grad_written {nw}, "
-        f"n_grad_dropped {nd}, grad_cap {gcap}")
+    loop_img, loop_grads = fwd_bwd(False)
+    reset_launches()
+    queue_img, queue_grads = fwd_bwd(True)
+    torch.cuda.synchronize()
+    q_launches = read_launches()
+    log(f"[queue] bench.py fwd+bwd workload with queue=True: launches {q_launches}")
+    path = ("pack_soa", "rasterize_fwd_q", "rasterize_bwd_q", "pack_rows", "segsum")
+    if min(q_launches[k] for k in path) < 1 or q_launches["rasterize_fwd"] \
+            or q_launches["rasterize_bwd"]:
+        fail(f"[queue] the queue path did not run through its kernels: {q_launches}")
+    rel = {}
+    for name, gq, gl in zip(("means2d", "conics", "colors", "opacities"), queue_grads,
+                            loop_grads):
+        scale = float(gl.abs().max()) + 1e-12
+        rel[name] = float((gq - gl).abs().max()) / scale
+        if not bool(((gq - gl).abs() <= GRAD_ATOL_FRAC * scale + GRAD_RTOL * gl.abs()).all()):
+            fail(f"[queue] the queue path's gradient of {name} differs from the loop path's")
+    same_img = torch.equal(queue_img, loop_img)
+    rel = {k: float(f"{v:.3e}") for k, v in rel.items()}
+    log(f"[queue] image equal to the loop path's bit for bit: {same_img}; gradients, max "
+        f"|queue - loop| / max |loop|: {json.dumps(rel)}")
+    if not same_img:
+        fail("[queue] the queue path's image differs from the loop path's")
+    del loop_img, loop_grads, queue_img, queue_grads
+
+    # Loop and queue in turns: loop, queue, queue, loop.
+    fb = {False: [], True: []}
+    for queue in (False, True, True, False):
+        fb[queue].append(cuda_ms(lambda q=queue: fwd_bwd(q), reps=5))
+    meta = {q: rasterize_grad_meta(*args, WIDTH, HEIGHT, tile_size=TILE, chunk=CHUNK,
+                                   max_tiles_per_gaussian=MAX_T, queue=q)
+            for q in (False, True)}
+    fb_ms, fbq_ms = statistics.mean(fb[False]), statistics.mean(fb[True])
+    nw, nd, gcap = meta[False]
+    log(f"[bench] bench.py fwd+bwd workload (dense binning): loop {fb_ms:.3f} ms "
+        f"{fb[False]}, {WIDTH * HEIGHT / (fb_ms / 1e3):.1f} pixels/s; queue {fbq_ms:.3f} ms "
+        f"{fb[True]}, {WIDTH * HEIGHT / (fbq_ms / 1e3):.1f} pixels/s; n_grad_written {nw}, "
+        f"n_grad_dropped {nd}, grad_cap {gcap}; queue probe {meta[True]}")
     if nd != 0:
         fail("[bench] the backward dropped gradient entries at grad_buffer_frac 1")
+    if meta[True] != meta[False]:
+        fail("[queue] rasterize_grad_meta(queue=True) differs from queue=False")
     del diff, args
     torch.cuda.empty_cache()
-    return {"bench_fwd_bwd_ms": fb_ms}
+    return {"bench_fwd_bwd_ms": fb_ms, "bench_fwd_bwd_queue_ms": fbq_ms,
+            "queue_launches": q_launches}
 
 
 def small_phase(dev):
@@ -651,7 +902,7 @@ def train_phase(dev, scene, views, images):
             fail(f"[train] parameter {k} is not finite")
     if not losses[-1] < losses[0]:
         fail(f"[train] the loss did not descend: {losses}")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in KERNELS[:5]) < 1:
         fail(f"[train] a kernel of the training path never launched: {launches}")
     return step, state, batch, step_ms, launches
 
@@ -663,8 +914,11 @@ def run(dev):
     from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
     from gaussian_splatting_tpu_torch.models.gaussians import (
         PARAM_KEYS, GaussianParams, state_from_numpy)
+    from gaussian_splatting_tpu_torch.ops.partition import partition_soa, partition_soa_plain
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
-        bwd_tiles, bwd_tiles_plain, cdiv, fwd_tiles, fwd_tiles_plain)
+        bwd_tiles, bwd_tiles_plain, bwd_tiles_q, cdiv, check_queue, fwd_tiles,
+        fwd_tiles_plain, fwd_tiles_q)
+    from gaussian_splatting_tpu_torch.ops.tiling import BUCKET_C
     from gaussian_splatting_tpu_torch.ops.render import project_and_shade, render
     from gaussian_splatting_tpu_torch.ops.segsum import (
         segment_sum_sorted, segment_sum_sorted_plain)
@@ -750,8 +1004,12 @@ def run(dev):
     sargs = (proj.means2d, proj.conics, colors, opac, proj.depths, proj.radii)
     b = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T)
     table = quantity_table(*sargs[:5])
-    pack_err, fwd_err, fwd_out, pairs = compare_kernels(b, table, "train view 0")
+    pack_err, fwd_err, fwd_out, pairs, plain_out = compare_kernels(b, table, "train view 0")
     bw = compare_backward(b, fwd_out, N_GAUSSIANS, "train view 0", seed=1)
+    qerr = compare_queue(b, fwd_out, plain_out, bw, N_GAUSSIANS, "train view 0")
+    del plain_out
+    bk = compare_partition(sargs, b, fwd_out, bw, "train view 0")
+    bstep, bstate, bbatch, bstep_ms, blaunches = bucket_train_phase(dev, scene, views, images)
     M = table.shape[1] * MAX_T
     gid = b.sorted_soa[11, :M].to(torch.int32).contiguous()
     gid_long = gid.long()
@@ -762,6 +1020,9 @@ def run(dev):
     N = N_GAUSSIANS
 
     binning_ms = cuda_ms(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T), reps=5)
+    binning_bucket_ms = cuda_ms(lambda: isect_and_sort(
+        *sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=BUCKETS,
+        bucket_headroom=BUCKET_HEADROOM), reps=5)
     pack_ms = cuda_ms(lambda: pack_soa(table, gid, 2 * CHUNK))
     pack_plain_ms = cuda_ms(lambda: pack_soa_plain(table, gid, 2 * CHUNK), reps=5)
     pack_lib_ms = cuda_ms(lambda: torch.index_select(table, 1, gid_long))
@@ -772,6 +1033,26 @@ def run(dev):
     bwd_args = (b.tile_starts, b.counts, b.sorted_soa, gout, fwd_out, TILE, ntx, CHUNK, N, gcap)
     bwd_ms = cuda_ms(lambda: bwd_tiles(*bwd_args))
     bwd_plain_ms = cuda_ms(lambda: bwd_tiles_plain(*bwd_args), reps=3, warmup=1)
+    # The queue kernels at the same shapes; their plain versions are the
+    # queue check and the loop's plain versions.
+    queue = queue_for(b)
+    n_work = int(queue[2])
+    fwd_q_ms = cuda_ms(lambda: fwd_tiles_q(*queue[:2], b.tile_starts, b.counts, queue[2],
+                                           b.sorted_soa, TILE, ntx, CHUNK))
+    fwd_q_plain_ms = cuda_ms(lambda: (check_queue(*queue, b.counts, CHUNK), fwd_tiles_plain(
+        b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK)), reps=3, warmup=1)
+    bwd_q_ms = cuda_ms(lambda: bwd_tiles_q(*queue[:2], b.tile_starts, b.counts, queue[2],
+                                           *bwd_args[2:]))
+    bwd_q_plain_ms = cuda_ms(lambda: (check_queue(*queue, b.counts, CHUNK),
+                                      bwd_tiles_plain(*bwd_args)), reps=3, warmup=1)
+    # The partition at the bucket binning's own input.
+    packed, q, Tb, part_err = bk["packed"], bk["q"], float(bk["T"]), bk["err"]
+    part_ms = cuda_ms(lambda: partition_soa(packed, BUCKETS, q, sentinel=Tb, C=BUCKET_C,
+                                            drop_key_above=Tb))
+    part_nv = torch.full((1,), packed.shape[1], dtype=torch.int32, device=dev)
+    part_plain_ms = cuda_ms(lambda: partition_soa_plain(
+        packed, BUCKETS, q, key_row=0, sentinels=(Tb,) * BUCKETS, C=BUCKET_C, bucket_shift=0,
+        n_valid=part_nv, drop_key_above=Tb), reps=5)
     grad, meta, key, perm, stacked = (bw[k] for k in ("grad", "meta", "key", "perm", "stacked"))
     n_written = int(meta[0])
     nv = meta[:1].contiguous()
@@ -819,6 +1100,17 @@ def run(dev):
     # segsum: reads the id (4 B) of every column and the 15 payload rows
     # (60 B) of the real entries; writes 64 B per gaussian.
     seg_bound = (4 * stacked.shape[1] + 60 * n_real + 64 * N) / HBM_BYTES_PER_S * 1e3
+    # The queue kernels do the loop kernels' work and read the queue too:
+    # cum (T + 1), n_work and one wtile entry per work item.
+    queue_bytes_ms = (4 * (T + 2) + 4 * n_work) / HBM_BYTES_PER_S * 1e3
+    # partition: reads the key (4 B) of every input column and rows 1..14
+    # (56 B) of each kept one, the key already counted and row 15 computed;
+    # writes 64 B per output column, plus n_valid, the sentinels, counts
+    # and drops.
+    part_out, part_kept = bk["out"][0], int(bk["out"][1].sum())
+    part_cols = part_out.shape[1] * part_out.shape[2]
+    part_bound = ((4 * packed.shape[1] + 56 * part_kept + 64 * part_cols + 4 + 12 * BUCKETS)
+                  / HBM_BYTES_PER_S * 1e3)
 
     per_step = {k: v / (TRAIN_STEPS) for k, v in launches.items()}
     log(f"[time] per-view render {statistics.median(render_ms):.3f} ms (median of "
@@ -844,9 +1136,28 @@ def run(dev):
     log(f"[time] library yardsticks: segsum index_add_ on (16, N+1) {seg_lib_cols_ms:.3f} ms, "
         f"on (N+1, 16) {seg_lib_rows_ms:.3f} ms; pack_rows index_select {prow_lib_ms:.3f} ms; "
         f"pack index_select {pack_lib_ms:.3f} ms")
+    log(f"[time] queue path, train view 0 ({n_work} work items): queue forward {fwd_q_ms:.3f} "
+        f"ms (loop {fwd_ms:.3f}), queue backward {bwd_q_ms:.3f} ms (loop {bwd_ms:.3f}); bench.py "
+        f"fwd+bwd workload queue {bench['bench_fwd_bwd_queue_ms']:.3f} ms, loop "
+        f"{bench['bench_fwd_bwd_ms']:.3f} ms; queue run launches {bench['queue_launches']}")
+    log(f"[time] bucket path (sort_buckets {BUCKETS}): binning incl. partition "
+        f"{binning_bucket_ms:.3f} ms (dense {binning_ms:.3f}); partition {part_ms:.3f} ms "
+        f"(plain {part_plain_ms:.3f}, bound {part_bound:.4f}: {packed.shape[1]} input columns, "
+        f"{part_kept} kept, {part_cols} output columns); training step "
+        f"{statistics.median(bstep_ms[1:]):.3f} ms (median of steps 1-{BUCKET_STEPS - 1}: "
+        f"{[round(x, 3) for x in bstep_ms]}; dense {statistics.median(step_ms[1:]):.3f}); "
+        f"launches per step {({k: v / BUCKET_STEPS for k, v in blaunches.items()})}")
+    del packed, part_out, bk
 
     trace(lambda: raster.render_single(state.params, views[0]), "one render")
     trace(lambda: step(tstate, batch), "one training step")
+    trace(lambda: bstep(bstate, bbatch), "one bucket-path training step")
+
+    # Launches: rows 1-5 from the dense training run, the queue kernels from
+    # the queue path's run, the partition from the bucket path's run.
+    launches = dict(launches, rasterize_fwd_q=bench["queue_launches"]["rasterize_fwd_q"],
+                    rasterize_bwd_q=bench["queue_launches"]["rasterize_bwd_q"],
+                    partition=blaunches["partition"])
 
     def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms):
         return {"name": name, "route": "cuda",
@@ -855,21 +1166,32 @@ def run(dev):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
 
+    def by(bytes_ms, ops_ms):
+        return "operations" if ops_ms >= bytes_ms else "bytes"
+
     return {"kernels": [
         row("pack_soa", "pack_soa.cu", "gaussian_splatting_tpu/ops/tiling.py:335",
             pack_err, pack_ms, pack_plain_ms, pack_bound, "bytes", pack_lib_ms),
         row("rasterize_fwd", "rasterize_fwd.cu",
             "gaussian_splatting_tpu/ops/rasterize_pallas.py:130", fwd_err, fwd_ms,
-            fwd_plain_ms, max(fwd_bytes_ms, fwd_ops_ms),
-            "operations" if fwd_ops_ms >= fwd_bytes_ms else "bytes", None),
+            fwd_plain_ms, max(fwd_bytes_ms, fwd_ops_ms), by(fwd_bytes_ms, fwd_ops_ms), None),
         row("rasterize_bwd", "rasterize_bwd.cu",
             "gaussian_splatting_tpu/ops/rasterize_pallas.py:217", bw["bwd_err"], bwd_ms,
-            bwd_plain_ms, max(bwd_bytes_ms, bwd_ops_ms),
-            "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes", None),
+            bwd_plain_ms, max(bwd_bytes_ms, bwd_ops_ms), by(bwd_bytes_ms, bwd_ops_ms), None),
         row("pack_rows", "pack_rows.cu", "gaussian_splatting_tpu/ops/tiling.py:386",
             bw["pack_rows_err"], prow_ms, prow_plain_ms, prow_bound, "bytes", prow_lib_ms),
         row("segsum", "segsum.cu", "gaussian_splatting_tpu/ops/segsum.py:49",
             bw["segsum_err"], seg_ms, seg_plain_ms, seg_bound, "bytes", seg_lib_ms),
+        row("rasterize_fwd_q", "rasterize_fwd_q.cu",
+            "gaussian_splatting_tpu/ops/rasterize_pallas.py:446", qerr["fwd_q_err"], fwd_q_ms,
+            fwd_q_plain_ms, max(fwd_bytes_ms + queue_bytes_ms, fwd_ops_ms),
+            by(fwd_bytes_ms + queue_bytes_ms, fwd_ops_ms), None),
+        row("rasterize_bwd_q", "rasterize_bwd_q.cu",
+            "gaussian_splatting_tpu/ops/rasterize_pallas.py:565", qerr["bwd_q_err"], bwd_q_ms,
+            bwd_q_plain_ms, max(bwd_bytes_ms + queue_bytes_ms, bwd_ops_ms),
+            by(bwd_bytes_ms + queue_bytes_ms, bwd_ops_ms), None),
+        row("partition", "partition.cu", "gaussian_splatting_tpu/ops/partition.py:77",
+            part_err, part_ms, part_plain_ms, part_bound, "bytes", None),
     ]}
 
 

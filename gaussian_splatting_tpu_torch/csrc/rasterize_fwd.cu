@@ -23,7 +23,9 @@
 // written with explicit round-to-nearest intrinsics, so no multiply-add is
 // contracted and the stop decisions are bit-identical to the plain PyTorch
 // version (fwd_tiles_plain), which does the same float32 operations in the
-// same order; only the colour sums may differ in their last bits.
+// same order; only the colour sums may differ in their last bits. The
+// per-chunk body lives in raster_tiles.cuh, shared with the queue kernel
+// (rasterize_fwd_q.cu), whose output is this kernel's bit for bit.
 //
 // Bound on the H100: operations, ~30 float32 operations (one expf) per
 // (pixel, entry) pair evaluated, against ~40 bytes of SoA per entry shared
@@ -34,7 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "raster_common.cuh"
+#include "raster_tiles.cuh"
 
 namespace {
 
@@ -46,52 +48,17 @@ __global__ void rasterize_fwd_kernel(const int* __restrict__ tile_starts,
                                      int ts, int ntx, int chunk) {
   extern __shared__ float sh[];  // rows 0..9 of one chunk: sh[r * chunk + k]
   const int t = blockIdx.x;
-  const int P = ts * ts;
-  const int p = threadIdx.x;
   const int64_t start = tile_starts[t];
   const int count = counts[t];
-  const float px = (float)((t % ntx) * ts + p % ts) + 0.5f;
-  const float py = (float)((t / ntx) * ts + p / ts) + 0.5f;
+  float px, py;
+  gs::pixel_center(t, ntx, ts, threadIdx.x, &px, &py);
 
   float tcar = 1.0f;
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, acc_w = 0.f;
-  for (int base = 0; base < count; base += chunk) {
-    const int n = min(chunk, count - base);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int k = p; k < n; k += P) {
-      const int64_t col = start + base + k;
-#pragma unroll
-      for (int r = 0; r < 10; ++r) sh[r * chunk + k] = soa[r * soa_cols + col];
-    }
-    __syncthreads();
-
-    float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
-    for (int k = 0; k < n; ++k) {
-      const gs::Entry e = gs::eval_entry(px, py, sh[k], sh[chunk + k], sh[2 * chunk + k],
-                                         sh[3 * chunk + k], sh[4 * chunk + k],
-                                         sh[5 * chunk + k]);
-      const float prod_next = gs::next_prod(prod, e.alpha);
-      if (!gs::entry_counts(tcar, prod_next)) break;
-      const float w = __fmul_rn(__fmul_rn(e.alpha, tcar), prod);
-      acc_r += w * sh[6 * chunk + k];
-      acc_g += w * sh[7 * chunk + k];
-      acc_b += w * sh[8 * chunk + k];
-      acc_d += w * sh[9 * chunk + k];
-      acc_w += w;
-      prod = prod_next;
-    }
-    tcar = __fmul_rn(tcar, prod);
-  }
-
-  float* o = out + (int64_t)t * 8 * P + p;
-  o[0] = acc_r;
-  o[P] = acc_g;
-  o[2 * P] = acc_b;
-  o[3 * P] = acc_d;
-  o[4 * P] = acc_w;
-  o[5 * P] = 0.f;
-  o[6 * P] = 0.f;
-  o[7 * P] = 0.f;
+  gs::FwdAcc acc;
+  for (int base = 0; base < count; base += chunk)
+    gs::fwd_chunk(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, px, py,
+                  &tcar, &acc);
+  gs::fwd_store(out, t, acc);
 }
 
 }  // namespace

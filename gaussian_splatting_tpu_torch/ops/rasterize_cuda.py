@@ -12,12 +12,19 @@ length is part of the result. Its backward runs CUDA kernel 3
 appends per-entry gradients tagged with the gaussian id to one stream, then
 reduces the stream per gaussian (``tiling.reduce_padded_grads``: id sort,
 CUDA kernels 5 ``pack_rows`` and 4 ``segsum``).
+
+``queue=True`` runs the same two sweeps on the flat chunk queue
+(``tiling.chunk_queue``): CUDA kernels 6 (``csrc/rasterize_fwd_q.cu``) and
+7 (``csrc/rasterize_bwd_q.cu``), persistent blocks that each walk one
+tile's work items, with the loop kernels' per-chunk bodies; the forward is
+the loop forward's bit for bit. ``sort_buckets`` bins through the bucket
+partition (``tiling._bucket_binned``, CUDA kernel 8).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +32,7 @@ from gaussian_splatting_tpu_torch.ops import _build
 from gaussian_splatting_tpu_torch.ops.tiling import (
     cdiv,
     check_binning_mode,
+    chunk_queue,
     isect_and_sort,
     reduce_padded_grads,
     total_slots,
@@ -162,10 +170,12 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
                     chunk: int, n_gaussians: int, grad_cap: int):
     """Plain PyTorch version of the backward kernel. Returns ``(grad,
     meta, active)``: ``grad`` and ``meta`` as ``bwd_tiles`` returns them,
-    with the stream's columns in the TPU kernel's order (tile by tile, entry
-    by entry: the SoA's own order), and ``active``, the number of (pixel,
-    entry) pairs that count and pass the alpha gate, for which the kernel
-    computes gradient terms.
+    with the stream's columns in the TPU kernel's order: tile by tile,
+    entry by entry, each tile's entries appended right after the previous
+    tile's (entry k of tile t at ``excl_prefix(counts)[t] + k``, whatever
+    the gaps between segments in the SoA), and ``active``, the number of
+    (pixel, entry) pairs that count and pass the alpha gate, for which the
+    kernel computes gradient terms.
 
     A per-chunk loop vectorized over a batch of tiles. It recomputes the
     forward of ``fwd_tiles_plain`` (same float32 operations, the sequential
@@ -177,7 +187,8 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
     P = ts * ts
     dev = soa.device
     grad = torch.empty((16, grad_cap), dtype=torch.float32, device=dev)
-    total = int(tile_starts[T]) if T else 0
+    excl = torch.cumsum(counts.long(), 0) - counts.long()  # stream start of each tile
+    total = int(counts.sum())
     n_chunks_total = cdiv(total, chunk)
     kept = min(n_chunks_total, grad_cap // chunk) * chunk
     grad[:, :kept] = 0.0
@@ -234,7 +245,7 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
                 torch.where(gate, d_alpha * vis, 0.0).sum(1),
                 *((w * gc[c]).sum(1) for c in range(4)),
             )                                                      # 10 x (B, K)
-            dest = col[valid]
+            dest = (excl[t0:t1, None] + pos[None, :])[valid]
             keep = dest < kept
             dest = dest[keep]
             grad[0, dest] = data[11][valid][keep]
@@ -299,6 +310,120 @@ def bwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor
 bwd_tiles.launches = 0
 
 
+def _check_queue_args(wtile, cum, n_work, counts):
+    T = counts.shape[0]
+    if wtile.dtype != torch.int32 or wtile.dim() != 1:
+        raise ValueError("wtile must be (w_cap,) int32")
+    if cum.dtype != torch.int32 or tuple(cum.shape) != (T + 1,):
+        raise ValueError(f"cum must be ({T + 1},) int32")
+    if n_work.dtype != torch.int32 or n_work.numel() != 1:
+        raise ValueError("n_work must be a one-element int32 tensor")
+    if not (wtile.device == cum.device == n_work.device == counts.device):
+        raise ValueError("the queue tables must be on the tiles' device")
+    if not (wtile.is_contiguous() and cum.is_contiguous()):
+        raise ValueError("wtile and cum must be contiguous")
+
+
+def check_queue(wtile, cum, n_work, counts, chunk):
+    """The plain versions' reading of the chunk queue: raise ``ValueError``
+    unless work item w < n_work is chunk ``ci = w - cum[wtile[w]]`` of tile
+    ``wtile[w]``, the items of each tile form one run of ``cdiv(count,
+    chunk)`` items in tile order, and wtile holds all n_work items. Then the
+    queue sweeps exactly the chunks of the per-tile loop."""
+    T = counts.shape[0]
+    nw = int(n_work.reshape(()))
+    chunks = (cum[1:] - cum[:-1]).long()
+    want = torch.repeat_interleave(torch.arange(T, device=counts.device), chunks)
+    ok = (int(cum[0]) == 0 and int(cum[T]) == nw and wtile.shape[0] >= nw
+          and torch.equal(chunks, cdiv(counts.long(), chunk)))
+    if ok:
+        t = wtile[:nw].long()
+        ci = torch.arange(nw, device=counts.device) - cum[t].long()
+        ok = torch.equal(t, want) and bool(((ci >= 0) & (ci < chunks[t])).all())
+    if not ok:
+        raise ValueError("the chunk queue does not describe these tiles' chunks")
+
+
+def fwd_tiles_q(wtile: torch.Tensor, cum: torch.Tensor, tile_starts: torch.Tensor,
+                counts: torch.Tensor, n_work: torch.Tensor, soa: torch.Tensor,
+                tile_size: int, ntx: int, chunk: int) -> torch.Tensor:
+    """``fwd_tiles`` driven by the chunk queue ``(wtile, cum, n_work)`` of
+    ``tiling.chunk_queue`` (the order of ``rasterize_pallas.py:945``).
+    Tiles with no work get zero blocks, as in ``fwd_tiles``. CUDA tensors
+    run the kernel (``csrc/rasterize_fwd_q.cu``; its output is
+    ``fwd_tiles``' bit for bit), CPU tensors the plain version: the queue
+    checked by ``check_queue``, then ``fwd_tiles_plain``."""
+    _check_fwd_args(tile_starts, counts, soa, tile_size, chunk)
+    _check_queue_args(wtile, cum, n_work, counts)
+    if soa.device.type == "cpu":
+        check_queue(wtile, cum, n_work, counts, chunk)
+        return fwd_tiles_plain(tile_starts, counts, soa, tile_size, ntx, chunk)[0]
+    if soa.device.type != "cuda":
+        raise ValueError(f"fwd_tiles_q runs on CUDA or CPU tensors, not {soa.device}")
+    fn = _build.load("rasterize_fwd_q").gs_rasterize_fwd_q
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    T = counts.shape[0]
+    out = torch.empty((T, 8, tile_size * tile_size), dtype=torch.float32, device=soa.device)
+    next_tile = torch.empty((1,), dtype=torch.int32, device=soa.device)
+    with torch.cuda.device(soa.device):
+        rc = fn(wtile.data_ptr(), cum.data_ptr(), tile_starts.data_ptr(), counts.data_ptr(),
+                n_work.data_ptr(), wtile.shape[0], soa.data_ptr(), soa.shape[1], out.data_ptr(),
+                next_tile.data_ptr(), T, tile_size, ntx, chunk,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_fwd_q kernel launch failed: cudaError {rc}")
+    fwd_tiles_q.launches += 1
+    return out
+
+
+fwd_tiles_q.launches = 0
+
+
+def bwd_tiles_q(wtile: torch.Tensor, cum: torch.Tensor, tile_starts: torch.Tensor,
+                counts: torch.Tensor, n_work: torch.Tensor, soa: torch.Tensor,
+                gout: torch.Tensor, fout: torch.Tensor, tile_size: int, ntx: int,
+                chunk: int, n_gaussians: int, grad_cap: int):
+    """``bwd_tiles`` driven by the chunk queue ``(wtile, cum, n_work)``.
+    Returns ``(grad, meta)`` as ``bwd_tiles`` does. CUDA tensors run the
+    kernel (``csrc/rasterize_bwd_q.cu``; its column order changes from run
+    to run), CPU tensors the plain version: the queue checked by
+    ``check_queue``, then ``bwd_tiles_plain``."""
+    _check_bwd_args(tile_starts, counts, soa, gout, fout, tile_size, chunk, grad_cap)
+    _check_queue_args(wtile, cum, n_work, counts)
+    if soa.device.type == "cpu":
+        check_queue(wtile, cum, n_work, counts, chunk)
+        return bwd_tiles_plain(tile_starts, counts, soa, gout, fout, tile_size, ntx,
+                               chunk, n_gaussians, grad_cap)[:2]
+    if soa.device.type != "cuda":
+        raise ValueError(f"bwd_tiles_q runs on CUDA or CPU tensors, not {soa.device}")
+    fn = _build.load("rasterize_bwd_q").gs_rasterize_bwd_q
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    grad = torch.empty((16, grad_cap), dtype=torch.float32, device=soa.device)
+    meta = torch.empty((3,), dtype=torch.int32, device=soa.device)
+    next_tile = torch.empty((1,), dtype=torch.int32, device=soa.device)
+    with torch.cuda.device(soa.device):
+        rc = fn(wtile.data_ptr(), cum.data_ptr(), tile_starts.data_ptr(), counts.data_ptr(),
+                n_work.data_ptr(), wtile.shape[0], soa.data_ptr(), soa.shape[1], gout.data_ptr(),
+                fout.data_ptr(), grad.data_ptr(), grad_cap, meta.data_ptr(),
+                next_tile.data_ptr(), counts.shape[0], tile_size, ntx, chunk,
+                float(n_gaussians), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_bwd_q kernel launch failed: cudaError {rc}")
+    bwd_tiles_q.launches += 1
+    return grad, meta[:2]
+
+
+bwd_tiles_q.launches = 0
+
+
 def grad_cap(n_gaussians: int, max_t: int, chunk: int,
              grad_buffer_frac: float = 1.0) -> int:
     """Capacity of the backward kernel's gradient stream
@@ -310,35 +435,91 @@ def grad_cap(n_gaussians: int, max_t: int, chunk: int,
     return cdiv(bound, chunk) * chunk + chunk
 
 
+class _Config(NamedTuple):
+    width: int
+    height: int
+    ts: int
+    chunk: int
+    max_t: int
+    grad_cap: int
+    depth_grad: bool
+    reduce_slices: int
+    queue: bool
+    w_cap: int
+    sort_buckets: int
+    bucket_headroom: float
+
+
+def _config(N, width, height, ts, chunk, max_t, grad_buffer_frac, depth_grad=True,
+            reduce_slices=0, queue=False, sort_buckets=0, bucket_headroom=1.5):
+    """The static sizes of one rasterizer configuration
+    (``rasterize_pallas.py:800-828``): the gradient stream's capacity and
+    the chunk queue's, ``w_cap = n_slots // chunk + T`` (at most one
+    partial chunk per tile beyond the full ones)."""
+    T = cdiv(width, ts) * cdiv(height, ts)
+    return _Config(width, height, ts, chunk, max_t,
+                   grad_cap(N, max_t, chunk, grad_buffer_frac), bool(depth_grad),
+                   int(reduce_slices), bool(queue),
+                   total_slots(N, max_t, None) // chunk + T, int(sort_buckets),
+                   float(bucket_headroom))
+
+
+def _binned(cfg: _Config, means2d, conics, colors, opacities, depths, radii):
+    return isect_and_sort(means2d, conics, colors, opacities, depths, radii, cfg.width,
+                          cfg.height, cfg.ts, cfg.chunk, cfg.max_t,
+                          sort_buckets=cfg.sort_buckets, bucket_headroom=cfg.bucket_headroom)
+
+
+def _run_fwd(cfg: _Config, b):
+    """The forward sweep, on the loop kernel or the chunk queue
+    (``rasterize_pallas.py:942-949``; the queue kernel writes the empty
+    tiles' zero blocks itself, which the JAX caller does with a ``where``)."""
+    ntx = cdiv(cfg.width, cfg.ts)
+    if not cfg.queue:
+        return fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, cfg.ts, ntx, cfg.chunk)
+    wtile, cum, n_work = chunk_queue(b.counts, cfg.chunk, cfg.w_cap)
+    return fwd_tiles_q(wtile, cum, b.tile_starts, b.counts, n_work.reshape(1), b.sorted_soa,
+                       cfg.ts, ntx, cfg.chunk)
+
+
+def _run_bwd(cfg: _Config, tile_starts, counts, soa, gout, fout, n_gaussians):
+    """The backward sweep, on the loop kernel or the chunk queue
+    (``rasterize_pallas.py:951-958``)."""
+    ntx = cdiv(cfg.width, cfg.ts)
+    if not cfg.queue:
+        return bwd_tiles(tile_starts, counts, soa, gout, fout, cfg.ts, ntx, cfg.chunk,
+                         n_gaussians, cfg.grad_cap)
+    wtile, cum, n_work = chunk_queue(counts, cfg.chunk, cfg.w_cap)
+    return bwd_tiles_q(wtile, cum, tile_starts, counts, n_work.reshape(1), soa, gout, fout,
+                       cfg.ts, ntx, cfg.chunk, n_gaussians, cfg.grad_cap)
+
+
 class _RasterizeTiled(torch.autograd.Function):
     """Binning + forward kernel; the backward runs the backward kernel and
     the per-gaussian reduce (``rasterize_pallas.py:985-1004``)."""
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, depths, radii, cfg):
-        width, height, ts, chunk, max_t, gcap, _, _ = cfg
-        b = isect_and_sort(means2d, conics, colors, opacities, depths, radii,
-                           width, height, ts, chunk, max_t)
-        out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, ts,
-                        cdiv(width, ts), chunk)
-        n_grad_dropped = torch.clamp_min(b.n_isect + chunk - gcap, 0)
-        ctx.mark_non_differentiable(b.n_isect, b.n_dropped, b.n_budget_dropped,
+        b = _binned(cfg, means2d, conics, colors, opacities, depths, radii)
+        out = _run_fwd(cfg, b)
+        n_grad_dropped = torch.clamp_min(b.n_isect + cfg.chunk - cfg.grad_cap, 0)
+        n_budget_dropped = b.n_budget_dropped + b.n_bucket_dropped
+        ctx.mark_non_differentiable(b.n_isect, b.n_dropped, n_budget_dropped,
                                     n_grad_dropped)
         ctx.save_for_backward(b.sorted_soa, b.tile_starts, b.counts, out)
         ctx.cfg = cfg
         ctx.n_gaussians = means2d.shape[0]
-        return out, b.n_isect, b.n_dropped, b.n_budget_dropped, n_grad_dropped
+        return out, b.n_isect, b.n_dropped, n_budget_dropped, n_grad_dropped
 
     @staticmethod
     def backward(ctx, g_out, *_):
-        width, _, ts, chunk, _, gcap, depth_grad, reduce_slices = ctx.cfg
+        cfg = ctx.cfg
         soa, tile_starts, counts, out = ctx.saved_tensors
         N = ctx.n_gaussians
         g = torch.zeros_like(out) if g_out is None else g_out.contiguous()
-        grad, meta = bwd_tiles(tile_starts, counts, soa, g, out, ts, cdiv(width, ts),
-                               chunk, N, gcap)
-        gr = reduce_padded_grads(grad, N, meta[0], with_depth=depth_grad,
-                                 sort_slices=reduce_slices)
+        grad, meta = _run_bwd(cfg, tile_starts, counts, soa, g, out, N)
+        gr = reduce_padded_grads(grad, N, meta[0], with_depth=cfg.depth_grad,
+                                 sort_slices=cfg.reduce_slices)
         d_means2d = torch.stack([gr["dmx"], gr["dmy"]], dim=-1)
         d_conics = torch.stack([gr["dca"], gr["dcb"], gr["dcc"]], dim=-1)
         d_colors = torch.stack([gr["dr"], gr["dg"], gr["db"]], dim=-1)
@@ -366,6 +547,8 @@ def rasterize_tiled(
     grad_buffer_frac: float = 1.0,
     reduce_slices: int = 0,
     depth_grad: bool = True,
+    queue: bool = False,
+    bucket_headroom: float = 1.5,
 ):
     """Tiled rasterization: binning + CUDA kernels (plain versions for CPU
     tensors). Returns (image (H, W, 3), alpha (H, W), depth (H, W)), plus a
@@ -378,18 +561,22 @@ def rasterize_tiled(
     drops. ``reduce_slices = K > 1`` reduces the stream in K sorted slices.
     ``depth_grad=False`` declares that the depth output is never
     differentiated: d_depths comes back zero and the reduce carries one
-    payload row less. ``class_budgets``, ``depth_bits``, ``sort_buckets``
-    and ``sort_bands`` are not ported yet and raise
-    ``NotImplementedError``."""
+    payload row less. ``queue=True`` runs both sweeps on the flat chunk
+    queue (CUDA kernels 6 and 7): the same image bit for bit, the same
+    gradients up to summation order. ``sort_buckets = B`` bins through the
+    bucket partition with ``bucket_headroom`` (``tiling.isect_and_sort``);
+    its overflow is folded into ``n_budget_dropped``, as the JAX package
+    does. ``class_budgets``, ``depth_bits`` and ``sort_bands`` are not
+    ported yet and raise ``NotImplementedError``."""
     ts = tile_size
     if ts * ts not in (64, 256, 1024):
         raise ValueError("tile_size must be 8, 16, or 32")
     check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
     ntx = cdiv(width, ts)
     nty = cdiv(height, ts)
-    gcap = grad_cap(means2d.shape[0], max_tiles_per_gaussian, chunk, grad_buffer_frac)
-    cfg = (width, height, ts, chunk, max_tiles_per_gaussian, gcap, bool(depth_grad),
-           int(reduce_slices))
+    cfg = _config(means2d.shape[0], width, height, ts, chunk, max_tiles_per_gaussian,
+                  grad_buffer_frac, depth_grad, reduce_slices, queue, sort_buckets,
+                  bucket_headroom)
     out, n_isect, n_dropped, n_budget_dropped, n_grad_dropped = _RasterizeTiled.apply(
         means2d, conics, colors, opacities, depths, radii, cfg)
 
@@ -414,21 +601,22 @@ def rasterize_grad_meta(means2d, conics, colors, opacities, depths, radii, width
                         height, tile_size: int = 16, chunk: int = 256,
                         max_tiles_per_gaussian: int = 16, class_budgets=None,
                         depth_bits: int = 0, grad_buffer_frac: float = 1.0,
-                        sort_buckets: int = 0, sort_bands: int = 0):
+                        sort_buckets: int = 0, bucket_headroom: float = 1.5,
+                        sort_bands: int = 0, queue: bool = False):
     """Exact gradient-stream occupancy of one render: ``(n_written,
     n_dropped, grad_cap)`` as Python ints, from binning, the forward and one
     backward sweep with unit cotangents (occupancy depends on the segments,
     not on the cotangent values). Counterpart of ``rasterize_pallas.py:1120``;
     it sizes ``grad_buffer_frac``."""
     check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
-    ts = tile_size
     N = means2d.shape[0]
-    gcap = grad_cap(N, max_tiles_per_gaussian, chunk, grad_buffer_frac)
+    cfg = _config(N, width, height, tile_size, chunk, max_tiles_per_gaussian,
+                  grad_buffer_frac, queue=queue, sort_buckets=sort_buckets,
+                  bucket_headroom=bucket_headroom)
     with torch.no_grad():
-        b = isect_and_sort(means2d, conics, colors, opacities, depths, radii,
-                           width, height, ts, chunk, max_tiles_per_gaussian)
-        out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, ts, cdiv(width, ts), chunk)
-        _, meta = bwd_tiles(b.tile_starts, b.counts, b.sorted_soa, torch.ones_like(out),
-                            out, ts, cdiv(width, ts), chunk, N, gcap)
+        b = _binned(cfg, means2d, conics, colors, opacities, depths, radii)
+        out = _run_fwd(cfg, b)
+        _, meta = _run_bwd(cfg, b.tile_starts, b.counts, b.sorted_soa,
+                           torch.ones_like(out), out, N)
     n_written, n_dropped = (int(x) for x in meta.tolist())
-    return n_written, n_dropped, gcap
+    return n_written, n_dropped, cfg.grad_cap

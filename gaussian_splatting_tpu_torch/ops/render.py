@@ -64,6 +64,7 @@ def render(
     class_budgets=None,
     depth_bits: int = 0,
     sort_buckets: int = 0,
+    bucket_headroom: float = 1.5,
     sort_bands: int = 0,
     rasterize_mode: str = "classic",
     with_stats: bool = False,
@@ -80,7 +81,8 @@ def render(
     compensation factor. ``grad_buffer_frac``, ``reduce_slices`` and
     ``depth_grad`` (cuda backend) size and shape the backward's gradient
     reduce; ``depth_grad=False`` promises that the depth output is never
-    differentiated (see ``rasterize_cuda.rasterize_tiled``)."""
+    differentiated; ``sort_buckets`` and ``bucket_headroom`` bin through the
+    bucket partition (see ``rasterize_cuda.rasterize_tiled``)."""
     backend = resolve_backend(backend)
     dev = resolve_device(device)
 
@@ -108,8 +110,8 @@ def render(
             width, height, bg=bg, tile_size=tile_size, chunk=raster_chunk,
             max_tiles_per_gaussian=max_tiles_per_gaussian,
             class_budgets=class_budgets, depth_bits=depth_bits,
-            sort_buckets=sort_buckets, sort_bands=sort_bands,
-            with_stats=with_stats, grad_buffer_frac=grad_buffer_frac,
+            sort_buckets=sort_buckets, bucket_headroom=bucket_headroom,
+            sort_bands=sort_bands, with_stats=with_stats, grad_buffer_frac=grad_buffer_frac,
             reduce_slices=reduce_slices, depth_grad=depth_grad)
         if with_stats:
             image, alpha_img, depth_img, stats = res
@@ -157,7 +159,8 @@ def render_grad_meta(means, quats, log_scales, logit_opacities, sh_coeffs, viewm
                      max_tiles_per_gaussian: int = 16, raster_chunk: int = 256,
                      class_budgets=None, depth_bits: int = 0,
                      grad_buffer_frac: float = 1.0, sort_buckets: int = 0,
-                     sort_bands: int = 0, rasterize_mode: str = "classic",
+                     bucket_headroom: float = 1.5, sort_bands: int = 0,
+                     rasterize_mode: str = "classic",
                      device: DeviceLike = None):
     """Exact gradient-stream occupancy ``(n_written, n_dropped, grad_cap)``
     of one view through the cuda backend: the probe that sizes
@@ -180,7 +183,7 @@ def render_grad_meta(means, quats, log_scales, logit_opacities, sh_coeffs, viewm
         tile_size=tile_size, chunk=raster_chunk,
         max_tiles_per_gaussian=max_tiles_per_gaussian, class_budgets=class_budgets,
         depth_bits=depth_bits, grad_buffer_frac=grad_buffer_frac,
-        sort_buckets=sort_buckets, sort_bands=sort_bands)
+        sort_buckets=sort_buckets, bucket_headroom=bucket_headroom, sort_bands=sort_bands)
 
 
 def compose_render_mode(render_mode: str, image, alpha, depth) -> torch.Tensor:

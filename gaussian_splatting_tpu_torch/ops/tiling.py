@@ -1,5 +1,6 @@
 """Tile binning for the CUDA rasterizer (counterpart of
-``gaussian_splatting_tpu/ops/tiling.py``, flat dense path).
+``gaussian_splatting_tpu/ops/tiling.py``: the dense slot layout, sorted
+flat or through the bucket partition).
 
 Pipeline, for N screen-space gaussians and ``max_t`` slots each:
 
@@ -16,6 +17,20 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
    SoA by gathering the per-gaussian quantities through the sorted slot ->
    gaussian index.
 
+``sort_buckets = B`` replaces step 2 (``_bucket_binned``): ``pack_rows``
+(CUDA kernel 5) lays the slots out as (16, M) rows [tile, depth, mx, ...,
+gid], the bucket partition (``ops/partition.py``, CUDA kernel 8) splits
+them by ``tile % B`` into a (16, B, cap) layout with pad columns, and one
+stable ``torch.sort(dim=1)`` of the same int64 key sorts every bucket.
+Segments then have pad columns between them and ``tile_starts[T]`` is
+``B * cap``, not a total: counts come per bucket, never as differences of
+neighbouring starts. The pad columns of the SoA hold gaussian 0's rows
+(``pack_soa`` gathers through their gid, 0) where the JAX package's hold
+zeros; the kernels read no column outside a segment.
+
+``chunk_queue`` builds the flat chunk work queue of the ``queue=True``
+rasterizer kernels.
+
 SoA row layout (16, M):
    0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c | 5 opacity |
    6 r | 7 g | 8 b | 9 depth | 10 const-one | 11 gauss_id (exact f32) |
@@ -28,8 +43,8 @@ kernel 5) gathering the payload rows through that sort's permutation, and
 ``segment_sum_sorted`` (``ops/segsum.py``, CUDA kernel 4).
 
 Only the dense slot layout is ported; the compact footprint-class layout,
-quantized depth keys, bucket partition and band-split sorts raise
-``NotImplementedError`` naming their ROADMAP item.
+quantized depth keys and band-split sorts raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,6 +79,7 @@ class TileBinning(NamedTuple):
     n_isect: torch.Tensor           # () total real intersections
     n_dropped: torch.Tensor         # () tiles lost to the max_t cap
     n_budget_dropped: torch.Tensor  # () tiles lost to class budgets (0 dense)
+    n_bucket_dropped: torch.Tensor  # () tiles lost to bucket overflow (0 flat)
 
 
 def class_caps(max_t: int) -> Tuple[int, ...]:
@@ -302,16 +318,33 @@ pack_soa.launches = 0
 def check_binning_mode(class_budgets=None, depth_bits: int = 0,
                        sort_buckets: int = 0, sort_bands: int = 0) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a binning
-    mode the port does not have yet; only the dense flat sort is ported."""
+    mode the port does not have yet (the dense layout, sorted flat or
+    through ``sort_buckets``, is ported)."""
     if class_budgets is not None:
         raise NotImplementedError(
             "compact class_budgets binning: ROADMAP queue 1, item 3")
     if depth_bits:
         raise NotImplementedError("depth_bits sort keys: ROADMAP queue 1, item 9")
-    if sort_buckets:
-        raise NotImplementedError("sort_buckets partition: ROADMAP queue 1, item 9")
     if sort_bands:
         raise NotImplementedError("sort_bands binning: ROADMAP queue 1, item 9")
+
+
+def slot_tiles(means2d, conics, opacities, radii, width: int, height: int, tile_size: int,
+               max_tiles_per_gaussian: int):
+    """The dense slots' tiles: ``(tile_key (M,) int32, n_dropped, T)`` with
+    slots laid out (max_t, N) (slot s * N + g is slot s of gaussian g), T
+    on a sentinel slot, and the tiles lost to the max_t cap."""
+    ts = tile_size
+    ntx, nty, tx0, ty0, nx, wt, n_tiles, n_capped = _tile_rects(
+        means2d, conics, opacities, radii, width, height, ts, max_tiles_per_gaussian)
+    T = ntx * nty
+    s = torch.arange(max_tiles_per_gaussian, dtype=torch.int32, device=means2d.device)[:, None]
+    ell = (means2d[None, :, 0], means2d[None, :, 1], conics[None, :, 0],
+           conics[None, :, 1], conics[None, :, 2], opacities[None, :])
+    tile_key = _slot_tiles(
+        tx0[None, :], ty0[None, :], nx[None, :], wt[None, :],
+        n_capped[None, :], s, ntx, ts, T, ellipse=ell).reshape(-1)
+    return tile_key, torch.sum(n_tiles - n_capped), T
 
 
 def isect_and_sort(
@@ -330,31 +363,36 @@ def isect_and_sort(
     depth_bits: int = 0,
     sort_buckets: int = 0,
     sort_bands: int = 0,
+    bucket_headroom: float = 1.5,
 ) -> TileBinning:
     """Bin and depth-sort N screen-space gaussians into the kernel-ready
     SoA and per-tile segment tables (dense (max_t, N) slot layout). Not
-    differentiable by itself."""
+    differentiable by itself.
+
+    ``sort_buckets = B > 0`` (a power of two) sorts through the bucket
+    partition by ``tile % B`` with ``bucket_headroom`` times the balanced
+    share of each 512-slot chunk per bucket (``_bucket_binned``); bucket
+    overflow is counted in ``n_bucket_dropped`` and left out of
+    ``n_isect``."""
     check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
     N = means2d.shape[0]
     if N >= (1 << 24):
         raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
-    ts = tile_size
     max_t = max_tiles_per_gaussian
     dev = means2d.device
 
-    ntx, nty, tx0, ty0, nx, wt, n_tiles, n_capped = _tile_rects(
-        means2d, conics, opacities, radii, width, height, ts, max_t)
-    T = ntx * nty
-    n_dropped = torch.sum(n_tiles - n_capped)
-
-    # Dense slots laid out (max_t, N): slot index = s * N + gaussian.
-    s = torch.arange(max_t, dtype=torch.int32, device=dev)[:, None]
-    ell = (means2d[None, :, 0], means2d[None, :, 1], conics[None, :, 0],
-           conics[None, :, 1], conics[None, :, 2], opacities[None, :])
-    tile_key = _slot_tiles(
-        tx0[None, :], ty0[None, :], nx[None, :], wt[None, :],
-        n_capped[None, :], s, ntx, ts, T, ellipse=ell).reshape(-1)
+    tile_key, n_dropped, T = slot_tiles(means2d, conics, opacities, radii, width, height,
+                                        tile_size, max_t)
     n_isect = torch.sum(tile_key < T)
+    zero = torch.zeros((), dtype=n_isect.dtype, device=dev)
+    table = torch.stack([
+        means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1], conics[:, 2],
+        opacities, colors[:, 0], colors[:, 1], colors[:, 2], depths,
+    ]).to(torch.float32).contiguous()
+    if sort_buckets:
+        return _bucket_binned(tile_key, table, T, chunk, int(sort_buckets),
+                              float(bucket_headroom), n_isect,
+                              n_dropped.to(n_isect.dtype), zero)
 
     depth_key = _float_order_bits(depths).expand(max_t, N).reshape(-1)
     key = (tile_key.to(torch.int64) << 32) | depth_key
@@ -365,15 +403,90 @@ def isect_and_sort(
     counts = tile_starts[1:] - tile_starts[:-1]
 
     gid = torch.remainder(order, N).to(torch.int32)
-    table = torch.stack([
-        means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1], conics[:, 2],
-        opacities, colors[:, 0], colors[:, 1], colors[:, 2], depths,
-    ]).to(torch.float32).contiguous()
     soa = pack_soa(table, gid, pad=2 * chunk)
-    zero = torch.zeros((), dtype=n_isect.dtype, device=dev)
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=counts,
                        n_isect=n_isect, n_dropped=n_dropped.to(n_isect.dtype),
-                       n_budget_dropped=zero)
+                       n_budget_dropped=zero, n_bucket_dropped=zero)
+
+
+BUCKET_C = 512  # slots per partition chunk, as in the JAX bucket binning
+
+
+def bucket_partition_input(tile_key: torch.Tensor, table: torch.Tensor, T: int) -> torch.Tensor:
+    """The bucket partition's (16, M') input, gathered by ``pack_rows``
+    from a (16, N) per-gaussian table through slot -> gaussian: row 0 each
+    slot's tile (``slot_tiles``; exact float, T on every pad column), rows
+    1-11 depth, mx, my, ca, cb, cc, op, r, g, b, gid, rows 12-15 zero.
+    ``table`` is the (10, N) quantity table [mx, my, ca, cb, cc, op, r, g,
+    b, depth]."""
+    dev = tile_key.device
+    N = table.shape[1]
+    src = torch.zeros((16, N), dtype=torch.float32, device=dev)
+    src[1] = table[9]
+    src[2:11] = table[:9]
+    src[11] = torch.arange(N, dtype=torch.float32, device=dev)
+    perm = torch.remainder(torch.arange(tile_key.shape[0], device=dev), N)
+    n_valid = torch.full((1,), N, dtype=torch.int32, device=dev)
+    return pack_rows(src, perm, tile_key.to(torch.int32), n_valid, 0, 12, float(T),
+                     perm_bound=N)
+
+
+def _bucket_binned(tile_key, table, T, chunk, B, headroom, n_isect, n_dropped, zero):
+    """Partition-then-batched-sort binning (``tiling.py:787-859`` of the
+    JAX package). The partition discards sentinel slots (``drop_key_above
+    = T``) and keeps each bucket stable in slot order, so one stable sort
+    per bucket of the dense path's int64 key gives each tile the dense
+    path's order; tile t = j B + k is segment j of bucket k."""
+    from gaussian_splatting_tpu_torch.ops.partition import partition_soa, quantum_for
+
+    dev = tile_key.device
+    packed = bucket_partition_input(tile_key, table, T)
+    q = quantum_for(BUCKET_C, B, headroom)
+    cap = (packed.shape[1] // BUCKET_C) * q
+    out, _, drops = partition_soa(packed, B, q, key_row=0, sentinel=float(T),
+                                  C=BUCKET_C, drop_key_above=float(T))
+    del packed
+
+    key = (out[0].to(torch.int64) << 32) | _float_order_bits(out[1])     # (B, cap)
+    key_sorted, order = torch.sort(key, dim=1, stable=True)
+    gid = torch.gather(out[11], 1, order).to(torch.int32).reshape(-1)
+    del out, key, order
+
+    # Per-bucket segments: bucket k holds tiles k, k + B, ...; the last
+    # query, T, lands at the bucket's pad run.
+    Tq = cdiv(T, B)
+    karr = torch.arange(B, device=dev)[:, None]
+    queries = torch.clamp_max(karr + torch.arange(Tq + 1, device=dev)[None, :] * B, T)
+    ss = torch.searchsorted(key_sorted >> 32, queries.contiguous())       # (B, Tq + 1)
+    starts_g = ss[:, :-1] + karr * cap
+    counts_g = ss[:, 1:] - ss[:, :-1]
+    tile_starts = torch.cat([starts_g.T.reshape(-1)[:T],
+                             torch.full((1,), B * cap, device=dev, dtype=ss.dtype)])
+    counts = counts_g.T.reshape(-1)[:T]
+    soa = pack_soa(table, gid, pad=2 * chunk)
+    n_bucket_dropped = drops.sum().to(n_isect.dtype)
+    return TileBinning(sorted_soa=soa, tile_starts=tile_starts.to(torch.int32),
+                       counts=counts.to(torch.int32), n_isect=n_isect - n_bucket_dropped,
+                       n_dropped=n_dropped, n_budget_dropped=zero,
+                       n_bucket_dropped=n_bucket_dropped)
+
+
+def chunk_queue(counts: torch.Tensor, chunk: int, w_cap: int):
+    """The flat chunk work queue of the ``queue=True`` kernels
+    (``tiling.py:862-890`` of the JAX package). Returns ``(wtile (w_cap,)
+    int32, cum (T+1,) int32, n_work () int32)``: work item w < n_work is
+    chunk ``w - cum[wtile[w]]`` of tile ``wtile[w]``, tile-major; ``cum``
+    is the exclusive prefix of the per-tile chunk counts; the pad tail past
+    ``n_work`` clamps to T - 1. ``w_cap`` must bound the total chunks.
+    Empty tiles never enter the queue."""
+    T = counts.shape[0]
+    dev = counts.device
+    chunks_per_tile = torch.div(counts + (chunk - 1), chunk, rounding_mode="floor")
+    cum = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                     torch.cumsum(chunks_per_tile, 0).to(torch.int32)])
+    w = torch.arange(w_cap, dtype=torch.int32, device=dev)
+    wtile = torch.searchsorted(cum[1:], w, right=True).to(torch.int32)
+    return torch.clamp_max(wtile, T - 1), cum, cum[T]
 
 
 def pack_rows_plain(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Tensor,
@@ -392,7 +505,7 @@ def pack_rows_plain(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Ten
     return out
 
 
-def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows):
+def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows, perm_bound):
     if src.dtype != torch.float32 or src.dim() != 2 or src.shape[0] != 16:
         raise ValueError(f"src must be (16, C) float32, got {tuple(src.shape)} {src.dtype}")
     M = perm.shape[0]
@@ -408,22 +521,26 @@ def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows):
         raise ValueError("src, perm and key_sorted must be contiguous")
     if not 1 <= n_rows <= 16:
         raise ValueError("n_rows must be in [1, 16]")
-    if not 0 <= col0 <= src.shape[1] - M:
-        raise ValueError("the slice [col0, col0 + M) must lie inside src")
+    bound = M if perm_bound is None else perm_bound
+    if not 0 <= col0 <= src.shape[1] - bound:
+        raise ValueError("the columns [col0, col0 + perm_bound) must lie inside src")
 
 
 def pack_rows(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Tensor,
               n_valid: torch.Tensor, col0: int, n_rows: int,
-              sentinel: float) -> torch.Tensor:
+              sentinel: float, perm_bound: Optional[int] = None) -> torch.Tensor:
     """The segsum-ready (16, cdiv(M, 8192) * 8192) buffer of the slice
     [col0, col0 + M) of a (16, C) stream in key order: row 0 the ascending
     int32 ``key_sorted`` as exact floats (``sentinel`` past M), rows
     1..n_rows-1 the stream's rows gathered through ``perm`` (the sort's
     permutation, slice-local) where ``col0 + perm < n_valid`` and 0
     elsewhere, rows n_rows..15 zero. Equal to the JAX ``pack_rows`` of the
-    permuted, masked rows. CUDA tensors run the kernel
+    permuted, masked rows. ``perm``'s values lie in [0, ``perm_bound``)
+    (default M, a permutation of the slice). The bucket binning passes a
+    gather instead: M slots from N < M gaussian columns, row 0 the slots'
+    tiles in slot order (not ascending there). CUDA tensors run the kernel
     (``csrc/pack_rows.cu``), CPU tensors the plain version."""
-    _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows)
+    _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows, perm_bound)
     if src.device.type == "cpu":
         return pack_rows_plain(src, perm, key_sorted, n_valid, col0, n_rows, sentinel)
     if src.device.type != "cuda":

@@ -5,8 +5,7 @@ packages. Every field here is read by ``make_train_step`` (or the optimizer
 it calls); fields of the trainer, densification, validation, meshes and
 logging come with the slices that read them. The binning modes the port has
 not ported yet (compact ``class_budgets``, ``sort_depth_bits``,
-``sort_buckets``, ``sort_bands``) raise ``NotImplementedError`` where a
-render reads them. ``backend`` takes the port's names: ``auto`` (=
+``sort_bands``) raise ``NotImplementedError`` where a render reads them. ``backend`` takes the port's names: ``auto`` (=
 ``cuda``), ``cuda`` or ``ref``."""
 
 import dataclasses
@@ -43,9 +42,14 @@ class TrainingConfig:
     raster_chunk: int = 256
     # Static cap on tiles covered per gaussian (overflow is counted).
     max_tiles_per_gaussian: int = 16
-    # Not ported yet; nonzero / not None raises NotImplementedError.
+    # Not ported yet; nonzero raises NotImplementedError.
     sort_depth_bits: int = 0
+    # B > 0 (a power of two): binning through the bucket partition by
+    # tile % B, each 512-slot chunk given partition_headroom times its
+    # balanced share per bucket; overflow is counted in n_budget_dropped.
     sort_buckets: int = 0
+    partition_headroom: float = 1.5
+    # Not ported yet; nonzero / not None raises NotImplementedError.
     sort_bands: int = 0
     class_budgets: Optional[tuple] = None
     # >1: the gradient reduce sorts K static slices separately and adds the

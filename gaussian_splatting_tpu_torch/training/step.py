@@ -115,7 +115,9 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                 raster_chunk=config.raster_chunk, class_budgets=config.class_budgets,
                 depth_bits=config.sort_depth_bits,
                 grad_buffer_frac=config.grad_buffer_frac,
-                sort_buckets=config.sort_buckets, reduce_slices=config.reduce_slices,
+                sort_buckets=config.sort_buckets,
+                bucket_headroom=config.partition_headroom,
+                reduce_slices=config.reduce_slices,
                 sort_bands=config.sort_bands,
                 rasterize_mode=config.rasterize_mode, with_stats=want_stats,
                 # The loss is photometric: the depth output never gets a

@@ -11,7 +11,7 @@ import torch
 
 from gaussian_splatting_tpu.ops.rasterize_pallas import rasterize_tiled as j_raster
 from gaussian_splatting_tpu.ops.rasterize_ref import rasterize_reference as j_oracle
-from gaussian_splatting_tpu_torch.ops import rasterize_cuda
+from gaussian_splatting_tpu_torch.ops import rasterize_cuda, tiling
 from gaussian_splatting_tpu_torch.ops.rasterize_cuda import rasterize_tiled as t_raster
 from gaussian_splatting_tpu_torch.ops.rasterize_ref import rasterize_reference as t_oracle
 from torch_parity import screen_gaussians, to_jax, to_torch
@@ -230,3 +230,70 @@ def test_fwd_tiles_checks_arguments():
     with pytest.raises(ValueError):
         rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 4096)
     assert rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 128).abs().sum() == 0
+
+
+def _gapped(b, gap, rng):
+    """``b``'s segments moved apart: tile t's segment starts ``gap * (t + 1)``
+    columns later, the gaps and the tail hold noise, and tile_starts[T]
+    lies ``3 * gap`` past the last segment, as in the bucket layout."""
+    T = b.counts.shape[0]
+    starts = b.tile_starts[:-1].long() + gap * (torch.arange(T) + 1)
+    end = int((starts + b.counts).max()) + 3 * gap
+    soa = torch.as_tensor(rng.normal(size=(16, end + 512)).astype(np.float32))
+    for t in range(T):
+        s, n, c = int(b.tile_starts[t]), int(starts[t]), int(b.counts[t])
+        soa[:, n:n + c] = b.sorted_soa[:, s:s + c]
+    return torch.cat([starts, torch.tensor([end])]).to(torch.int32), soa
+
+
+@pytest.mark.parametrize("frac", [1.0, 0.05])
+def test_plain_backward_on_gapped_segments_matches_jax(rng, frac):
+    """``bwd_tiles_plain`` on segments with gaps between them and
+    tile_starts[T] past the last one: entry k of tile t goes to stream
+    position excl_prefix(counts)[t] + k, where the TPU kernel appends it,
+    so the per-gaussian gradients and [n_written, n_dropped] equal the JAX
+    loop backward's (``rasterize_tiled`` and ``rasterize_grad_meta``,
+    interpret mode), also when ``grad_buffer_frac`` drops whole chunks."""
+    import jax
+    import jax.numpy as jnp
+    from gaussian_splatting_tpu.ops.rasterize_pallas import rasterize_grad_meta as j_meta
+
+    width, height, chunk, N = 64, 48, 128, 150
+    ntx, nty = width // 16, height // 16
+    args = screen_gaussians(rng, N, width, height)
+    w_img = rng.normal(size=(height, width, 5)).astype(np.float32)
+
+    def loss(img, alpha, depth, w):
+        return (img * w[..., :3]).sum() + (alpha * w[..., 3]).sum() + (depth * w[..., 4]).sum()
+
+    j_g = jax.grad(lambda *a: loss(*j_raster(*a, jnp.asarray(args[5]), width, height,
+                                             chunk=chunk, grad_buffer_frac=frac,
+                                             interpret=True), jnp.asarray(w_img)),
+                   argnums=(0, 1, 2, 3, 4))(*to_jax(*args[:5]))
+    j_nw, j_nd, j_gcap = (int(x) for x in j_meta(*to_jax(*args), width, height, chunk=chunk,
+                                                 grad_buffer_frac=frac, interpret=True))
+
+    b = rasterize_cuda.isect_and_sort(*to_torch(*args), width, height, 16, chunk, 16)
+    starts, soa = _gapped(b, 37, rng)
+    fout, _ = rasterize_cuda.fwd_tiles_plain(starts, b.counts, soa, 16, ntx, chunk)
+    assert torch.equal(fout, rasterize_cuda.fwd_tiles(b.tile_starts, b.counts, b.sorted_soa,
+                                                      16, ntx, chunk))
+    out = fout.clone().requires_grad_(True)
+    img = out.reshape(nty, ntx, 8, 16, 16).permute(0, 3, 1, 4, 2).reshape(height, width, 8)
+    loss(img[..., :3], img[..., 4], img[..., 3], torch.as_tensor(w_img)).backward()
+    gcap = rasterize_cuda.grad_cap(N, 16, chunk, frac)
+    grad, meta, _ = rasterize_cuda.bwd_tiles_plain(starts, b.counts, soa, out.grad, fout, 16,
+                                                   ntx, chunk, N, gcap)
+    s = tiling.reduce_padded_grads(grad, N, meta[0])
+    t_g = [torch.stack([s["dmx"], s["dmy"]], -1), torch.stack([s["dca"], s["dcb"], s["dcc"]], -1),
+           torch.stack([s["dr"], s["dg"], s["db"]], -1), s["dop"], s["ddepth"]]
+    for name, tg, jg in zip(["means2d", "conics", "colors", "opacities", "depths"], t_g, j_g):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(tg.numpy(), jg, atol=2e-4 * (np.abs(jg).max() + 1e-8),
+                                   rtol=1e-3, err_msg=name)
+    _, unit_meta, _ = rasterize_cuda.bwd_tiles_plain(starts, b.counts, soa,
+                                                     torch.ones_like(fout), fout, 16, ntx,
+                                                     chunk, N, gcap)
+    assert gcap == j_gcap
+    assert unit_meta.tolist() == [j_nw, j_nd]
+    assert (j_nd > 0) == (frac < 1.0)

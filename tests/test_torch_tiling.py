@@ -1,6 +1,8 @@
-"""PyTorch port, ``ops/tiling.py`` (dense binning and the ``pack_soa``
-kernel's plain version) against the JAX ``isect_and_sort`` / ``pack_soa``
-on identical screen-space inputs. Integers and SoA columns must be equal."""
+"""PyTorch port, ``ops/tiling.py`` (dense binning, flat and through the
+bucket partition, the chunk queue and the ``pack_soa`` kernel's plain
+version) against the JAX ``isect_and_sort`` / ``chunk_queue`` /
+``pack_soa`` on identical screen-space inputs. Integers and SoA columns
+must be equal."""
 
 import numpy as np
 import pytest
@@ -91,11 +93,83 @@ def test_class_caps_total_slots_and_exact_counts(rng):
 
 
 @pytest.mark.parametrize("kw", [{"class_budgets": (8,) * 8}, {"depth_bits": 16},
-                                {"sort_buckets": 4}, {"sort_bands": 2}])
+                                {"sort_bands": 2}])
 def test_unported_binning_modes_raise(rng, kw):
     args = to_torch(*screen_gaussians(rng, 10, 32, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_tiling.isect_and_sort(*args, 32, 32, 16, 128, 16, **kw)
+
+
+def _assert_same_bucket_binning(jb, tb):
+    """Tables, counters and every segment of the SoA equal. The layout has
+    pad columns between segments (JAX: zeros; the port: gaussian 0's rows,
+    gathered through gid 0), which the kernels never read."""
+    np.testing.assert_array_equal(tb.tile_starts.numpy(), np.asarray(jb.tile_starts))
+    np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(jb.counts))
+    for k in ("n_isect", "n_dropped", "n_budget_dropped", "n_bucket_dropped"):
+        assert int(getattr(tb, k)) == int(getattr(jb, k)), k
+    j_soa, t_soa = np.asarray(jb.sorted_soa), tb.sorted_soa.numpy()
+    assert t_soa.shape == j_soa.shape
+    starts, counts = tb.tile_starts.numpy(), tb.counts.numpy()
+    cols = np.concatenate([np.arange(s, s + c) for s, c in zip(starts[:-1], counts)])
+    assert len(cols) == int(tb.n_isect)
+    np.testing.assert_array_equal(t_soa[:12, cols], j_soa[:12, cols])
+
+
+@pytest.mark.parametrize("buckets", [2, 4])
+def test_bucket_binning_matches_jax(rng, buckets):
+    """``sort_buckets``: partition by tile % B, one batched sort: the JAX
+    package's segment tables, counters and segments; the starts jump
+    between buckets and tile_starts[T] = B * cap lies past every segment.
+    Each tile's order is the dense path's."""
+    width, height = 64, 48
+    args = screen_gaussians(rng, 150, width, height)
+    jb = j_isect(*to_jax(*args), width, height, 16, 128, 16, sort_buckets=buckets,
+                 interpret=True)
+    tb = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16,
+                                 sort_buckets=buckets)
+    _assert_same_bucket_binning(jb, tb)
+    assert int(tb.n_bucket_dropped) == 0
+    starts, counts = tb.tile_starts.numpy(), tb.counts.numpy()
+    assert starts[-1] > (starts[:-1] + counts).max()
+    assert (np.diff(starts[:-1]) < 0).any()
+    dense = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16)
+    np.testing.assert_array_equal(counts, dense.counts.numpy())
+    for t in np.nonzero(counts)[0]:
+        s, d, c = starts[t], int(dense.tile_starts[t]), counts[t]
+        assert torch.equal(tb.sorted_soa[:12, s:s + c], dense.sorted_soa[:12, d:d + c])
+
+
+def test_bucket_overflow_counted_matches_jax(rng):
+    """Starved buckets (headroom 0.05, tests/test_rasterize_pallas.py:269):
+    the drops are counted as the JAX package counts them and left out of
+    n_isect; kept + dropped is the dense count."""
+    width, height = 64, 48
+    args = screen_gaussians(rng, 400, width, height, radius_scale=2.0,
+                            opacity_range=(0.05, 0.3))
+    jb = j_isect(*to_jax(*args), width, height, 16, 128, 16, sort_buckets=2,
+                 bucket_headroom=0.05, interpret=True)
+    tb = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16,
+                                 sort_buckets=2, bucket_headroom=0.05)
+    _assert_same_bucket_binning(jb, tb)
+    dense = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16)
+    assert int(tb.n_bucket_dropped) > 0
+    assert int(tb.n_isect) + int(tb.n_bucket_dropped) == int(dense.n_isect)
+
+
+@pytest.mark.parametrize("counts,w_cap", [([300, 0, 256, 1, 0], 8), ([0, 0, 0], 4),
+                                          ([513, 7, 0, 256, 255], 12)])
+def test_chunk_queue_matches_jax(counts, w_cap):
+    """The flat chunk queue (tests/test_rasterize_pallas.py:628 and one
+    more): tile-major items, empty tiles skipped, the pad tail clamped."""
+    from gaussian_splatting_tpu.ops.tiling import chunk_queue as j_chunk_queue
+
+    c = np.asarray(counts, np.int32)
+    jq = j_chunk_queue(to_jax(c)[0], 256, w_cap)
+    tq = t_tiling.chunk_queue(to_torch(c)[0], 256, w_cap)
+    for j, t in zip(jq, tq):
+        assert t.dtype == torch.int32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 def test_pack_soa_checks_arguments():

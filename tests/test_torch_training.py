@@ -168,10 +168,20 @@ def test_train_step_matches_jax(rng, poses):
     """One step of ``make_train_step`` from the same state in both packages:
     64x48, batch 2, SH degree 3, the cuda backend (plain kernel versions)
     against the JAX ``pallas`` backend (interpret mode)."""
+    _assert_step_matches_jax(rng, poses)
+
+
+def test_train_step_with_sort_buckets_matches_jax(rng):
+    """The same with ``sort_buckets=4`` (binning through the bucket
+    partition, ``partition_headroom`` 1.5) in both packages."""
+    _assert_step_matches_jax(rng, False, sort_buckets=4)
+
+
+def _assert_step_matches_jax(rng, poses, **cfg):
     n_views = 3 if poses else 0
     arrays = train_state_arrays(rng, 150, n_views=n_views)
     images, views, Ks, view_idx = _batch(rng, n_views)
-    kw = dict(optimize_poses=poses)
+    kw = dict(optimize_poses=poses, **cfg)
 
     j_fn = j_step.make_train_step(JConfig(**kw), W, H, 3, "pallas", 2.0, donate=False)
     jb = j_step.ViewBatch(*to_jax(images, views, Ks),
