@@ -9,11 +9,15 @@ Phases (any failure exits nonzero and prints no result):
 2. the bench scene of ``bench.py`` (numpy seed 0, 1M screen-space
    gaussians, 1920x1080, dense binning, chunk 256): intersection counts
    against the JAX package's recorded ones and, gaussian by gaussian,
-   against the same binning on the host CPU; the pack and forward kernels
-   against their plain versions; then the backward: ``bwd_tiles`` + the
-   kernel reduce against ``bwd_tiles_plain`` + the plain reduce under a
-   seeded cotangent, and ``pack_rows`` and ``segsum`` against their plain
-   versions on the kernel's gradient stream; then the queue path: the
+   against the same binning on the host CPU; the pack kernel against its
+   plain version on the sort's own gid, with ``n_live`` (the binning's SoA,
+   zero past n_isect) and gathering every column, and the forward kernel
+   on that SoA equal to the forward on the full-gather plain SoA bit for
+   bit and within its tolerance of its plain version; then the backward:
+   ``bwd_tiles`` + the kernel reduce against ``bwd_tiles_plain`` + the
+   plain reduce under a seeded cotangent, and ``pack_rows`` (10 and 11
+   rows) and ``segsum`` against their plain versions on the kernel's
+   gradient stream; then the queue path: the
    queue forward equal to the loop forward bit for bit, the queue backward
    + reduce against the plain versions, and the ``bench.py`` forward +
    backward workload with ``queue=True`` (the queue kernels must launch,
@@ -32,8 +36,9 @@ Phases (any failure exits nonzero and prints no result):
    features_dc and logit opacities, towards the scene's own renders; the
    loss must descend, everything stay finite, no gradient be dropped, and
    every kernel of the path launch during the steps;
-5b. the bucket path at training view 0: the partition kernel against its
-   plain version on the binning's own partition input (exact), the bucket
+5b. the bucket path at training view 0: ``pack_rows`` building the
+   partition's input against its plain version, the partition kernel
+   against its plain version on that input (both exact), the bucket
    binning's n_isect + n_bucket_dropped equal to the dense n_isect and,
    with no bucket drop, its forward equal to the dense one bit for bit and
    its backward + reduce against the dense plain sums and meta;
@@ -44,7 +49,9 @@ Phases (any failure exits nonzero and prints no result):
    training step (dense and bucket), one view's forward + backward, the
    ``bench.py`` forward + backward workload (loop and queue), binning
    (dense and bucket), and each kernel against its bound, its plain
-   version and, where there is one, a PyTorch library call;
+   version and, where there is one, a PyTorch library call (the two pack
+   kernels also against an ``index_select`` moving the same bytes and
+   against writing their output's zeros, in each of their uses);
 7. one render and one training step traced with ``torch.profiler``: device
    kernels launched, the device's busy and idle share, the kernels taking
    most time.
@@ -238,12 +245,16 @@ def view_eyes(k=4, dist=3.0):
             for a in np.linspace(0.0, 2 * np.pi, k, endpoint=False)]
 
 
-def quantity_table(means2d, conics, colors, opacities, depths):
-    import torch
+def dense_gid(sargs):
+    """The dense binning's own sort at screen-space inputs ``sargs``: the
+    sorted slot -> gaussian index (M,) and its segment end
+    ``tile_starts[T:]``, the ``n_live`` it passes to ``pack_soa``."""
+    from gaussian_splatting_tpu_torch.ops.tiling import dense_sort, slot_tiles
 
-    return torch.stack([means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1],
-                        conics[:, 2], opacities, colors[:, 0], colors[:, 1],
-                        colors[:, 2], depths]).contiguous()
+    means2d, conics, _, opac, depths, radii = sargs
+    tile_key, _, T = slot_tiles(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE, MAX_T)
+    tile_starts, gid = dense_sort(tile_key, depths, T)
+    return gid, tile_starts[T:]
 
 
 def per_gaussian_counts(b, n):
@@ -279,30 +290,44 @@ def compare_counts(args_dev, b):
     torch.cuda.empty_cache()
 
 
-def compare_kernels(b, table, tag):
-    """Both forward-path kernels against their plain versions on one
-    binning ``b``: pack exact, forward atol 1e-5 (rgb, sum_w) / 1e-4
-    (depth). Returns (pack_err, fwd_err, fwd_out, pairs,
-    plain_out)."""
+def compare_kernels(sargs, b, tag):
+    """Both forward-path kernels against their plain versions on the dense
+    binning ``b`` of screen-space inputs ``sargs``, with the sort's own gid:
+    pack exact, with ``n_live`` (the binning's SoA) and gathering every
+    column; the forward on the binning's SoA equal bit for bit to the
+    forward on the full-gather plain SoA, and within atol 1e-5 (rgb, sum_w)
+    / 1e-4 (depth) of its plain version. Returns a dict of the errors,
+    outputs and the pack's inputs."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import fwd_tiles, fwd_tiles_plain
-    from gaussian_splatting_tpu_torch.ops.tiling import pack_soa, pack_soa_plain
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        pack_soa, pack_soa_plain, quantity_records)
 
-    M = table.shape[1] * MAX_T
-    gid = b.sorted_soa[11, :M].to(torch.int32).contiguous()
-    k_soa = pack_soa(table, gid, 2 * CHUNK)
-    p_soa = pack_soa_plain(table, gid, 2 * CHUNK)
+    records = quantity_records(*sargs[:5])
+    gid, n_live = dense_gid(sargs)
+    k_soa = pack_soa(records, gid, 2 * CHUNK, n_live)
+    p_soa = pack_soa_plain(records, gid, 2 * CHUNK, n_live)
     torch.cuda.synchronize()
     pack_err = float((k_soa - p_soa).abs().max())
     if not torch.equal(k_soa, p_soa):
         fail(f"[{tag}] pack kernel differs from pack_soa_plain (max |diff| {pack_err})")
     if not torch.equal(k_soa, b.sorted_soa):
         fail(f"[{tag}] pack kernel output differs from the binning's SoA")
-    del p_soa, k_soa
+    del p_soa
+    k_full = pack_soa(records, gid, 2 * CHUNK)
+    p_full = pack_soa_plain(records, gid, 2 * CHUNK)
+    torch.cuda.synchronize()
+    live = int(n_live)
+    if not (torch.equal(k_full, p_full) and torch.equal(k_full[:, :live], k_soa[:, :live])):
+        fail(f"[{tag}] full-gather pack kernel differs from pack_soa_plain or from the "
+             f"n_live pack below n_live")
+    del k_full, k_soa
 
     ntx = -(-WIDTH // TILE)
     k_out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK)
+    same = torch.equal(k_out, fwd_tiles(b.tile_starts, b.counts, p_full, TILE, ntx, CHUNK))
+    del p_full
     p_out, pairs = fwd_tiles_plain(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK)
     torch.cuda.synchronize()
     diff = (k_out - p_out).abs()
@@ -310,14 +335,19 @@ def compare_kernels(b, table, tag):
     err_depth = float(diff[:, 3].max())
     n_bad = int(((diff[:, 0:3] > 1e-5).any(1) | (diff[:, 4] > 1e-5)
                  | (diff[:, 3] > 1e-4)).sum())
-    log(f"[{tag}] pack kernel == plain: exact ({M} columns); forward kernel vs "
-        f"plain over {b.counts.shape[0]} tiles: max |diff| rgb/sum_w {err_rgbw:.3e}, "
-        f"depth {err_depth:.3e}, pixels beyond tolerance {n_bad}")
+    log(f"[{tag}] pack kernel == plain: exact ({gid.shape[0]} columns, n_live {live}; and "
+        f"gathering all columns); forward on it == forward on the full-gather plain SoA: "
+        f"{same}; forward kernel vs plain over {b.counts.shape[0]} tiles: max |diff| "
+        f"rgb/sum_w {err_rgbw:.3e}, depth {err_depth:.3e}, pixels beyond tolerance {n_bad}")
+    if not same:
+        fail(f"[{tag}] the forward on the n_live SoA differs from the forward on the full one")
     if not (err_rgbw <= 1e-5 and err_depth <= 1e-4):
         fail(f"[{tag}] forward kernel disagrees with fwd_tiles_plain")
     if not bool(torch.isfinite(k_out).all()):
         fail(f"[{tag}] forward kernel output is not finite")
-    return pack_err, max(err_rgbw, err_depth), k_out, int(pairs), p_out
+    return {"pack_err": pack_err, "fwd_err": max(err_rgbw, err_depth), "fwd_out": k_out,
+            "pairs": int(pairs), "plain_out": p_out, "records": records, "gid": gid,
+            "n_live": n_live}
 
 
 def plain_reduce(grad, n, n_written, with_depth):
@@ -410,20 +440,23 @@ def compare_backward(b, fwd_out, n, tag, seed=0):
 
     key, perm = sorted_gid_key(k_grad, n, k_meta[0], 0, k_grad.shape[1])
     nv = k_meta[:1].contiguous()
-    k_st = pack_rows(k_grad, perm, key, nv, 0, 11, float(n))
-    p_st = pack_rows_plain(k_grad, perm, key, nv, 0, 11, float(n))
-    torch.cuda.synchronize()
-    pack_rows_err = float((k_st - p_st).abs().max())
-    if not torch.equal(k_st, p_st):
-        fail(f"[{tag}] pack_rows kernel differs from pack_rows_plain ({pack_rows_err})")
-    del p_st
+    for n_rows in (10, 11):  # the step's reduce (no depth payload) and with depth
+        k_st = pack_rows(k_grad, perm, key, nv, 0, n_rows, float(n))
+        p_st = pack_rows_plain(k_grad, perm, key, nv, 0, n_rows, float(n))
+        torch.cuda.synchronize()
+        pack_rows_err = float((k_st - p_st).abs().max())
+        if not torch.equal(k_st, p_st):
+            fail(f"[{tag}] pack_rows kernel ({n_rows} rows) differs from pack_rows_plain "
+                 f"({pack_rows_err})")
+        del p_st
     k_seg = segment_sum_sorted(k_st, n)
     p_seg = segment_sum_sorted_plain(k_st, n)
     torch.cuda.synchronize()
     seg_d = (k_seg - p_seg).abs()[1:]
     seg_scale = p_seg.abs()[1:].amax(1, keepdim=True) + 1e-12
     segsum_err = float(seg_d.max())
-    log(f"[{tag}] pack_rows kernel == plain: exact ({k_st.shape[1]} columns); segsum "
+    log(f"[{tag}] pack_rows kernel == plain, 10 and 11 rows: exact ({k_st.shape[1]} "
+        f"columns); segsum "
         f"kernel vs plain: max |diff| {segsum_err:.3e} (rows 1-15, gate "
         f"{SEGSUM_ATOL_FRAC} of each row's largest value)")
     if not bool((seg_d <= SEGSUM_ATOL_FRAC * seg_scale).all()):
@@ -496,20 +529,30 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
     (gapped) layout: the forward equal to the dense ``fwd_out`` bit for
     bit, and the backward kernel + kernel reduce under ``compare_backward``'s
     cotangent against its plain sums and meta (``bwd``) under the
-    backward's gates. Returns the partition's input, quantum, output, error
-    and drop count."""
+    backward's gates. The partition's input, ``bucket_partition_input``'s
+    ``pack_rows``, is held against ``pack_rows_plain`` first (exact).
+    Returns the partition's input and the arguments it was gathered from,
+    quantum, output, error, drop count and the bucket binning's gid."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.partition import (
         partition_soa, partition_soa_plain, quantum_for)
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import bwd_tiles, fwd_tiles
     from gaussian_splatting_tpu_torch.ops.tiling import (
-        BUCKET_C, bucket_partition_input, isect_and_sort, reduce_padded_grads, slot_tiles)
+        BUCKET_C, bucket_input_args, bucket_partition_input, isect_and_sort, pack_rows_plain,
+        quantity_records, reduce_padded_grads, slot_tiles)
 
     means2d, conics, _, opac, _, radii = sargs
     tile_key, _, T = slot_tiles(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE, MAX_T)
-    packed = bucket_partition_input(tile_key, quantity_table(*sargs[:5]), T)
-    del tile_key
+    records = quantity_records(*sargs[:5])
+    packed = bucket_partition_input(tile_key, records, T)
+    bargs = bucket_input_args(tile_key, records, T)
+    del tile_key, records
+    same = torch.equal(packed, pack_rows_plain(*bargs))
+    log(f"[{tag}] pack_rows kernel, bucket partition input (16, {packed.shape[1]}), 12 rows "
+        f"gathered from (16, {bargs[0].shape[1]}): equal to plain: {same}")
+    if not same:
+        fail(f"[{tag}] pack_rows kernel (bucket input) differs from pack_rows_plain")
     q = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
     k_out = partition_soa(packed, BUCKETS, q, sentinel=float(T), C=BUCKET_C,
                           drop_key_above=float(T))
@@ -560,8 +603,10 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
         if km != pm or not ok or not finite:
             fail(f"[{tag}] the backward on the bucket layout disagrees with the dense plain sums")
         del k_sums
+    gid_b = bb.sorted_soa[11, :k_out[0].shape[1] * k_out[0].shape[2]].to(torch.int32)
     del bb
-    return {"packed": packed, "q": q, "T": T, "out": k_out, "err": err, "n_drop": n_drop}
+    return {"packed": packed, "bargs": bargs, "q": q, "T": T, "out": k_out, "err": err,
+            "n_drop": n_drop, "gid": gid_b}
 
 
 def bucket_train_phase(dev, scene, views, images):
@@ -708,7 +753,9 @@ def bench_phase(dev):
     log(f"[bench] n_isect against the CPU binning's {BENCH_CPU_N_ISECT}: "
         f"{n_isect - BENCH_CPU_N_ISECT:+d}")
     compare_counts(args, b)
-    _, _, fwd_out, _, plain_out = compare_kernels(b, quantity_table(*args[:5]), "bench")
+    kc = compare_kernels(args, b, "bench")
+    fwd_out, plain_out = kc["fwd_out"], kc["plain_out"]
+    del kc
     bwd = compare_backward(b, fwd_out, N_GAUSSIANS, "bench")
     compare_queue(b, fwd_out, plain_out, bwd, N_GAUSSIANS, "bench")
     del b, fwd_out, plain_out, bwd
@@ -945,8 +992,8 @@ def run(dev):
             rp.means, rp.quats, rp.log_scales, rp.logit_opacities, rp.sh_coeffs,
             views[0]["world_view_transform"], K, WIDTH, HEIGHT, sh_degree=3)
     rargs = (proj.means2d, proj.conics, colors, opac, proj.depths, proj.radii)
-    compare_kernels(isect_and_sort(*rargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T),
-                    quantity_table(*rargs[:5]), "render view 0")
+    compare_kernels(rargs, isect_and_sort(*rargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T),
+                    "render view 0")
     del proj, colors, opac, rargs
     torch.cuda.empty_cache()
     step, tstate, batch, step_ms, launches = train_phase(dev, scene, views, images)
@@ -1003,15 +1050,17 @@ def run(dev):
         proj, colors, opac = project_and_shade(*shade_args, sh_degree=3)
     sargs = (proj.means2d, proj.conics, colors, opac, proj.depths, proj.radii)
     b = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T)
-    table = quantity_table(*sargs[:5])
-    pack_err, fwd_err, fwd_out, pairs, plain_out = compare_kernels(b, table, "train view 0")
+    kc = compare_kernels(sargs, b, "train view 0")
+    pack_err, fwd_err, fwd_out, pairs = (kc[k] for k in ("pack_err", "fwd_err", "fwd_out",
+                                                           "pairs"))
+    plain_out, records, gid, n_live = (kc[k] for k in ("plain_out", "records", "gid", "n_live"))
+    del kc
     bw = compare_backward(b, fwd_out, N_GAUSSIANS, "train view 0", seed=1)
     qerr = compare_queue(b, fwd_out, plain_out, bw, N_GAUSSIANS, "train view 0")
     del plain_out
     bk = compare_partition(sargs, b, fwd_out, bw, "train view 0")
     bstep, bstate, bbatch, bstep_ms, blaunches = bucket_train_phase(dev, scene, views, images)
-    M = table.shape[1] * MAX_T
-    gid = b.sorted_soa[11, :M].to(torch.int32).contiguous()
+    M = gid.shape[0]
     gid_long = gid.long()
     T = b.counts.shape[0]
     P = TILE * TILE
@@ -1023,9 +1072,30 @@ def run(dev):
     binning_bucket_ms = cuda_ms(lambda: isect_and_sort(
         *sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=BUCKETS,
         bucket_headroom=BUCKET_HEADROOM), reps=5)
-    pack_ms = cuda_ms(lambda: pack_soa(table, gid, 2 * CHUNK))
-    pack_plain_ms = cuda_ms(lambda: pack_soa_plain(table, gid, 2 * CHUNK), reps=5)
+    # pack_soa: the dense binning's call (n_live), the full gather of the
+    # same columns and of the bucket binning's B * cap columns. Yardsticks:
+    # index_select of the (10, N) row table (ten rows written of sixteen),
+    # of a (16, N) table holding the ten rows, ones, ids and zeros (the
+    # same bytes), of the (N, 10) records (a row gather), and writing the
+    # (16, m_out) output's zeros.
+    pack_ms = cuda_ms(lambda: pack_soa(records, gid, 2 * CHUNK, n_live))
+    pack_full_ms = cuda_ms(lambda: pack_soa(records, gid, 2 * CHUNK))
+    gid_b = bk["gid"]
+    pack_bucket_ms = cuda_ms(lambda: pack_soa(records, gid_b, 2 * CHUNK))
+    pack_plain_ms = cuda_ms(lambda: pack_soa_plain(records, gid, 2 * CHUNK, n_live), reps=5)
+    table = records.T.contiguous()
     pack_lib_ms = cuda_ms(lambda: torch.index_select(table, 1, gid_long))
+    table16 = torch.zeros((16, N), device=dev)
+    table16[:10] = table
+    table16[10] = 1.0
+    table16[11] = torch.arange(N, device=dev, dtype=torch.float32)
+    pack_lib16_ms = cuda_ms(lambda: torch.index_select(table16, 1, gid_long))
+    pack_lib_rec_ms = cuda_ms(lambda: torch.index_select(records, 0, gid_long))
+    gid_b_long = gid_b.long()
+    pack_bucket_lib_ms = cuda_ms(lambda: torch.index_select(table, 1, gid_b_long))
+    pack_bucket_lib16_ms = cuda_ms(lambda: torch.index_select(table16, 1, gid_b_long))
+    del table16, gid_b_long
+    pack_zeros_ms = cuda_ms(lambda: torch.zeros_like(b.sorted_soa))
     fwd_ms = cuda_ms(lambda: fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK))
     fwd_plain_ms = cuda_ms(lambda: fwd_tiles_plain(b.tile_starts, b.counts, b.sorted_soa,
                                                    TILE, ntx, CHUNK), reps=3, warmup=1)
@@ -1063,6 +1133,13 @@ def run(dev):
     prow_plain_ms = cuda_ms(lambda: pack_rows_plain(grad, perm, key, nv, 0, 10, float(N)),
                             reps=5)
     prow_lib_ms = cuda_ms(lambda: torch.index_select(grad[:10], 1, perm))
+    prow_lib16_ms = cuda_ms(lambda: torch.index_select(grad, 1, perm))
+    prow_zeros_ms = cuda_ms(lambda: torch.zeros_like(stacked))
+    # pack_rows in the bucket binning: the partition's input, 12 rows from
+    # the (16, N) table through slot -> gaussian.
+    bargs = bk["bargs"]
+    prow_bucket_ms = cuda_ms(lambda: pack_rows(*bargs, perm_bound=N))
+    prow_bucket_lib_ms = cuda_ms(lambda: torch.index_select(bargs[0][:12], 1, bargs[1]))
     seg_ms = cuda_ms(lambda: segment_sum_sorted(stacked, N))
     seg_plain_ms = cuda_ms(lambda: segment_sum_sorted_plain(stacked, N), reps=5)
     # Library yardsticks: index_add_ on the kernel's (16, M) layout and on
@@ -1077,8 +1154,16 @@ def run(dev):
     del rows
     seg_lib_ms = min(seg_lib_cols_ms, seg_lib_rows_ms)
 
+    # pack_soa: reads the (N, 10) records (40 B a gaussian) and an id (4 B)
+    # only for the columns below n_live, and writes 64 B per output column;
+    # the full gathers read an id for every column below M.
     m_out = b.sorted_soa.shape[1]
-    pack_bound = (4 * M + 4 * 10 * N + 4 * 16 * m_out) / HBM_BYTES_PER_S * 1e3
+    live = int(n_live)
+    pack_bound = (4 * live + 40 * N + 64 * m_out) / HBM_BYTES_PER_S * 1e3
+    pack_full_bound = (4 * M + 40 * N + 64 * m_out) / HBM_BYTES_PER_S * 1e3
+    mb = gid_b.shape[0]
+    mb_out = cdiv(mb + 2 * CHUNK, 8192) * 8192
+    pack_bucket_bound = (4 * mb + 40 * N + 64 * mb_out) / HBM_BYTES_PER_S * 1e3
     fwd_bytes_ms = (4 * (2 * T + 1) + 4 * 10 * n_is + 4 * T * 8 * P) / HBM_BYTES_PER_S * 1e3
     fwd_ops_ms = pairs * FWD_FLOPS_PER_PAIR / FP32_FLOPS * 1e3
     # Backward: reads the tables, rows 0-9 and 11 of each entry, the
@@ -1100,6 +1185,11 @@ def run(dev):
     # segsum: reads the id (4 B) of every column and the 15 payload rows
     # (60 B) of the real entries; writes 64 B per gaussian.
     seg_bound = (4 * stacked.shape[1] + 60 * n_real + 64 * N) / HBM_BYTES_PER_S * 1e3
+    # pack_rows, bucket input: reads the tile key (4 B) and the slot ->
+    # gaussian index (8 B) of every slot and rows 1-11 of the (16, N) table
+    # once (44 B a gaussian); writes 64 B per output column.
+    mbi = bargs[1].shape[0]
+    prow_bucket_bound = (12 * mbi + 44 * N + 64 * cdiv(mbi, 8192) * 8192) / HBM_BYTES_PER_S * 1e3
     # The queue kernels do the loop kernels' work and read the queue too:
     # cum (T + 1), n_work and one wtile entry per work item.
     queue_bytes_ms = (4 * (T + 2) + 4 * n_work) / HBM_BYTES_PER_S * 1e3
@@ -1136,6 +1226,20 @@ def run(dev):
     log(f"[time] library yardsticks: segsum index_add_ on (16, N+1) {seg_lib_cols_ms:.3f} ms, "
         f"on (N+1, 16) {seg_lib_rows_ms:.3f} ms; pack_rows index_select {prow_lib_ms:.3f} ms; "
         f"pack index_select {pack_lib_ms:.3f} ms")
+    log(f"[time] pack_soa (n_live {live} of {M} columns): {pack_ms:.4f} ms, bound "
+        f"{pack_bound:.4f}; full gather of the {M} columns {pack_full_ms:.4f} ms, bound "
+        f"{pack_full_bound:.4f}; bucket path's full gather of {mb} columns "
+        f"{pack_bucket_ms:.4f} ms, bound {pack_bucket_bound:.4f}; yardsticks: index_select "
+        f"of the (10, N) table {pack_lib_ms:.4f} ms (bucket columns {pack_bucket_lib_ms:.4f}), "
+        f"of a (16, N) table, the same bytes, {pack_lib16_ms:.4f} ms (bucket columns "
+        f"{pack_bucket_lib16_ms:.4f}), of the (N, 10) records along dim 0 "
+        f"{pack_lib_rec_ms:.4f} ms, zeros of the (16, {m_out}) output {pack_zeros_ms:.4f} ms")
+    log(f"[time] pack_rows, reduce (10 rows, {n_real} real of {perm.shape[0]} columns): "
+        f"{prow_ms:.4f} ms, bound {prow_bound:.4f}; yardsticks: index_select of 10 rows "
+        f"{prow_lib_ms:.4f} ms, of all 16 rows, the same bytes, {prow_lib16_ms:.4f} ms, zeros "
+        f"of the (16, {prow_out}) output {prow_zeros_ms:.4f} ms; bucket input (12 rows, {mbi} "
+        f"slots from (16, {N})): {prow_bucket_ms:.4f} ms, bound {prow_bucket_bound:.4f}, "
+        f"index_select of 12 rows {prow_bucket_lib_ms:.4f} ms")
     log(f"[time] queue path, train view 0 ({n_work} work items): queue forward {fwd_q_ms:.3f} "
         f"ms (loop {fwd_ms:.3f}), queue backward {bwd_q_ms:.3f} ms (loop {bwd_ms:.3f}); bench.py "
         f"fwd+bwd workload queue {bench['bench_fwd_bwd_queue_ms']:.3f} ms, loop "

@@ -14,8 +14,10 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
    the same (max_t, N) layout resolves them); sentinel slots sink to the end.
 3. ``searchsorted`` gives the per-tile segment starts and counts.
 4. ``pack_soa`` (CUDA kernel 1) builds the kernel-ready (16, >= M + pad)
-   SoA by gathering the per-gaussian quantities through the sorted slot ->
-   gaussian index.
+   SoA by gathering the (N, 10) per-gaussian records through the sorted
+   slot -> gaussian index. The sentinel slots sort past ``tile_starts[T] =
+   n_isect`` and no kernel reads them, so the dense SoA is zero from column
+   ``n_isect`` on (``pack_soa(n_live=tile_starts[T:])``).
 
 ``sort_buckets = B`` replaces step 2 (``_bucket_binned``): ``pack_rows``
 (CUDA kernel 5) lays the slots out as (16, M) rows [tile, depth, mx, ...,
@@ -257,54 +259,77 @@ def _float_order_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(b >= 0, b + (1 << 31), (~b) & 0xFFFFFFFF)
 
 
-def pack_soa_plain(table: torch.Tensor, gid: torch.Tensor, pad: int) -> torch.Tensor:
-    """Plain PyTorch version of the ``pack_soa`` kernel: gather the (10, N)
-    quantity rows through ``gid``, stack with the const-one and id rows and
-    zero-pad to ``cdiv(M + pad, 8192) * 8192`` columns."""
+def quantity_records(means2d, conics, colors, opacities, depths) -> torch.Tensor:
+    """The (N, 10) float32 record table ``pack_soa`` gathers: one row per
+    gaussian, [mx, my, ca, cb, cc, op, r, g, b, depth]."""
+    return torch.stack([
+        means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1], conics[:, 2],
+        opacities, colors[:, 0], colors[:, 1], colors[:, 2], depths,
+    ], dim=1).to(torch.float32).contiguous()
+
+
+def pack_soa_plain(records: torch.Tensor, gid: torch.Tensor, pad: int,
+                   n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the ``pack_soa`` kernel: gather the (N, 10)
+    records through ``gid``, stack with the const-one and id rows, zero-pad
+    to ``cdiv(M + pad, 8192) * 8192`` columns and zero the columns from
+    ``n_live`` on (a mask, no host read)."""
     M = gid.shape[0]
     m_out = cdiv(M + pad, _PACK_C) * _PACK_C
-    out = torch.zeros((16, m_out), dtype=torch.float32, device=table.device)
-    out[:10, :M] = table[:, gid.long()]
+    out = torch.zeros((16, m_out), dtype=torch.float32, device=records.device)
+    out[:10, :M] = records[gid.long()].T
     out[10, :M] = 1.0
     out[11, :M] = gid.to(torch.float32)
+    if n_live is not None:
+        live = torch.arange(m_out, device=out.device) < n_live.reshape(1)
+        out = torch.where(live, out, 0.0)
     return out
 
 
-def _check_pack_args(table, gid):
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] != 10:
-        raise ValueError(f"table must be (10, N) float32, got {tuple(table.shape)} {table.dtype}")
+def _check_pack_args(records, gid, n_live):
+    if records.dtype != torch.float32 or records.dim() != 2 or records.shape[1] != 10:
+        raise ValueError(f"records must be (N, 10) float32, got {tuple(records.shape)} "
+                         f"{records.dtype}")
     if gid.dtype != torch.int32 or gid.dim() != 1:
         raise ValueError(f"gid must be (M,) int32, got {tuple(gid.shape)} {gid.dtype}")
-    if table.device != gid.device:
-        raise ValueError("table and gid must be on the same device")
-    if not (table.is_contiguous() and gid.is_contiguous()):
-        raise ValueError("table and gid must be contiguous")
-    if table.shape[1] >= (1 << 24):
+    if records.device != gid.device:
+        raise ValueError("records and gid must be on the same device")
+    if not (records.is_contiguous() and gid.is_contiguous()):
+        raise ValueError("records and gid must be contiguous")
+    if records.shape[0] >= (1 << 24):
         raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
+    if n_live is not None and (n_live.dtype != torch.int32 or n_live.numel() != 1
+                               or n_live.device != gid.device):
+        raise ValueError("n_live must be a one-element int32 tensor on gid's device")
 
 
-def pack_soa(table: torch.Tensor, gid: torch.Tensor, pad: int) -> torch.Tensor:
-    """Kernel-ready (16, cdiv(M + pad, 8192) * 8192) SoA from the (10, N)
-    per-gaussian rows [mx, my, ca, cb, cc, op, r, g, b, depth] and the
-    depth-sorted slot -> gaussian index ``gid`` (M,) int32 in [0, N).
-    Columns [0, M) equal the JAX ``pack_soa`` of the sorted rows; the pad is
-    zero. CUDA tensors run the kernel (``csrc/pack_soa.cu``), CPU tensors
-    the plain version."""
-    _check_pack_args(table, gid)
-    if table.device.type == "cpu":
-        return pack_soa_plain(table, gid, pad)
-    if table.device.type != "cuda":
-        raise ValueError(f"pack_soa runs on CUDA or CPU tensors, not {table.device}")
-    lib = _build.load("pack_soa")
-    fn = lib.gs_pack_soa
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+def pack_soa(records: torch.Tensor, gid: torch.Tensor, pad: int,
+             n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel-ready (16, cdiv(M + pad, 8192) * 8192) SoA from the (N, 10)
+    per-gaussian records [mx, my, ca, cb, cc, op, r, g, b, depth]
+    (``quantity_records``) and the depth-sorted slot -> gaussian index
+    ``gid`` (M,) int32 in [0, N). Columns [0, M) equal the JAX ``pack_soa``
+    of the sorted rows; the pad is zero. ``n_live``, a one-element int32
+    tensor on the device, zeroes the columns from it on as well, and the
+    kernel reads no id there. CUDA tensors run the kernel
+    (``csrc/pack_soa.cu``), CPU tensors the plain version."""
+    _check_pack_args(records, gid, n_live)
+    if records.device.type == "cpu":
+        return pack_soa_plain(records, gid, pad, n_live)
+    if records.device.type != "cuda":
+        raise ValueError(f"pack_soa runs on CUDA or CPU tensors, not {records.device}")
+    if records.data_ptr() % 8:
+        raise ValueError("records must be 8-byte aligned (the kernel loads float2)")
+    fn = _build.load("pack_soa").gs_pack_soa
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    N, M = table.shape[1], gid.shape[0]
+    M = gid.shape[0]
     m_out = cdiv(M + pad, _PACK_C) * _PACK_C
-    out = torch.empty((16, m_out), dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        rc = fn(table.data_ptr(), gid.data_ptr(), out.data_ptr(), N, M, m_out,
+    out = torch.empty((16, m_out), dtype=torch.float32, device=records.device)
+    with torch.cuda.device(records.device):
+        rc = fn(records.data_ptr(), gid.data_ptr(),
+                None if n_live is None else n_live.data_ptr(), out.data_ptr(), M, m_out,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pack_soa kernel launch failed: cudaError {rc}")
@@ -347,6 +372,20 @@ def slot_tiles(means2d, conics, opacities, radii, width: int, height: int, tile_
     return tile_key, torch.sum(n_tiles - n_capped), T
 
 
+def dense_sort(tile_key: torch.Tensor, depths: torch.Tensor, T: int):
+    """The dense binning's sort of the (max_t, N) slots (``slot_tiles``):
+    one stable ``torch.sort`` of the int64 key ``(tile << 32) | depth
+    bits``. Returns ``(tile_starts (T + 1,) int32, gid (M,) int32)``: the
+    per-tile segment starts, ``tile_starts[T]`` being n_isect, and the
+    gaussian of each sorted slot."""
+    N = depths.shape[0]
+    depth_key = _float_order_bits(depths).expand(tile_key.shape[0] // N, N).reshape(-1)
+    key_sorted, order = torch.sort((tile_key.to(torch.int64) << 32) | depth_key, stable=True)
+    query = torch.arange(T + 1, dtype=torch.int64, device=tile_key.device)
+    tile_starts = torch.searchsorted(key_sorted >> 32, query).to(torch.int32)
+    return tile_starts, torch.remainder(order, N).to(torch.int32)
+
+
 def isect_and_sort(
     means2d: torch.Tensor,
     conics: torch.Tensor,
@@ -385,25 +424,15 @@ def isect_and_sort(
                                         tile_size, max_t)
     n_isect = torch.sum(tile_key < T)
     zero = torch.zeros((), dtype=n_isect.dtype, device=dev)
-    table = torch.stack([
-        means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1], conics[:, 2],
-        opacities, colors[:, 0], colors[:, 1], colors[:, 2], depths,
-    ]).to(torch.float32).contiguous()
+    records = quantity_records(means2d, conics, colors, opacities, depths)
     if sort_buckets:
-        return _bucket_binned(tile_key, table, T, chunk, int(sort_buckets),
+        return _bucket_binned(tile_key, records, T, chunk, int(sort_buckets),
                               float(bucket_headroom), n_isect,
                               n_dropped.to(n_isect.dtype), zero)
 
-    depth_key = _float_order_bits(depths).expand(max_t, N).reshape(-1)
-    key = (tile_key.to(torch.int64) << 32) | depth_key
-    key_sorted, order = torch.sort(key, stable=True)
-    tile_sorted = key_sorted >> 32
-    query = torch.arange(T + 1, dtype=torch.int64, device=dev)
-    tile_starts = torch.searchsorted(tile_sorted, query).to(torch.int32)
+    tile_starts, gid = dense_sort(tile_key, depths, T)
     counts = tile_starts[1:] - tile_starts[:-1]
-
-    gid = torch.remainder(order, N).to(torch.int32)
-    soa = pack_soa(table, gid, pad=2 * chunk)
+    soa = pack_soa(records, gid, pad=2 * chunk, n_live=tile_starts[T:])
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=counts,
                        n_isect=n_isect, n_dropped=n_dropped.to(n_isect.dtype),
                        n_budget_dropped=zero, n_bucket_dropped=zero)
@@ -412,26 +441,33 @@ def isect_and_sort(
 BUCKET_C = 512  # slots per partition chunk, as in the JAX bucket binning
 
 
-def bucket_partition_input(tile_key: torch.Tensor, table: torch.Tensor, T: int) -> torch.Tensor:
+def bucket_partition_input(tile_key: torch.Tensor, records: torch.Tensor,
+                           T: int) -> torch.Tensor:
     """The bucket partition's (16, M') input, gathered by ``pack_rows``
     from a (16, N) per-gaussian table through slot -> gaussian: row 0 each
     slot's tile (``slot_tiles``; exact float, T on every pad column), rows
     1-11 depth, mx, my, ca, cb, cc, op, r, g, b, gid, rows 12-15 zero.
-    ``table`` is the (10, N) quantity table [mx, my, ca, cb, cc, op, r, g,
-    b, depth]."""
+    ``records`` is the (N, 10) record table [mx, my, ca, cb, cc, op, r, g,
+    b, depth] (``quantity_records``)."""
+    return pack_rows(*bucket_input_args(tile_key, records, T), perm_bound=records.shape[0])
+
+
+def bucket_input_args(tile_key: torch.Tensor, records: torch.Tensor, T: int):
+    """``pack_rows``'s arguments ``(src, perm, key_sorted, n_valid, col0,
+    n_rows, sentinel)`` for ``bucket_partition_input``: the (16, N) table,
+    slot -> gaussian (slot s * N + g holds gaussian g) and the tiles."""
     dev = tile_key.device
-    N = table.shape[1]
+    N = records.shape[0]
     src = torch.zeros((16, N), dtype=torch.float32, device=dev)
-    src[1] = table[9]
-    src[2:11] = table[:9]
+    src[1] = records[:, 9]
+    src[2:11] = records[:, :9].T
     src[11] = torch.arange(N, dtype=torch.float32, device=dev)
     perm = torch.remainder(torch.arange(tile_key.shape[0], device=dev), N)
     n_valid = torch.full((1,), N, dtype=torch.int32, device=dev)
-    return pack_rows(src, perm, tile_key.to(torch.int32), n_valid, 0, 12, float(T),
-                     perm_bound=N)
+    return src, perm, tile_key.to(torch.int32), n_valid, 0, 12, float(T)
 
 
-def _bucket_binned(tile_key, table, T, chunk, B, headroom, n_isect, n_dropped, zero):
+def _bucket_binned(tile_key, records, T, chunk, B, headroom, n_isect, n_dropped, zero):
     """Partition-then-batched-sort binning (``tiling.py:787-859`` of the
     JAX package). The partition discards sentinel slots (``drop_key_above
     = T``) and keeps each bucket stable in slot order, so one stable sort
@@ -440,7 +476,7 @@ def _bucket_binned(tile_key, table, T, chunk, B, headroom, n_isect, n_dropped, z
     from gaussian_splatting_tpu_torch.ops.partition import partition_soa, quantum_for
 
     dev = tile_key.device
-    packed = bucket_partition_input(tile_key, table, T)
+    packed = bucket_partition_input(tile_key, records, T)
     q = quantum_for(BUCKET_C, B, headroom)
     cap = (packed.shape[1] // BUCKET_C) * q
     out, _, drops = partition_soa(packed, B, q, key_row=0, sentinel=float(T),
@@ -463,7 +499,7 @@ def _bucket_binned(tile_key, table, T, chunk, B, headroom, n_isect, n_dropped, z
     tile_starts = torch.cat([starts_g.T.reshape(-1)[:T],
                              torch.full((1,), B * cap, device=dev, dtype=ss.dtype)])
     counts = counts_g.T.reshape(-1)[:T]
-    soa = pack_soa(table, gid, pad=2 * chunk)
+    soa = pack_soa(records, gid, pad=2 * chunk)
     n_bucket_dropped = drops.sum().to(n_isect.dtype)
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts.to(torch.int32),
                        counts=counts.to(torch.int32), n_isect=n_isect - n_bucket_dropped,

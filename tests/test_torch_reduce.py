@@ -72,7 +72,7 @@ def test_segment_sum_sorted_checks_arguments():
         t_segsum.segment_sum_sorted(torch.zeros((16, 8)), 1 << 24)
 
 
-@pytest.mark.parametrize("n_rows", [10, 11])
+@pytest.mark.parametrize("n_rows", [1, 4, 10, 11, 12, 15])
 def test_pack_rows_matches_jax_exactly(rng, n_rows):
     """The port sorts only the masked key and gathers the payloads through
     the permutation; JAX packs rows that are already permuted. Equal bit

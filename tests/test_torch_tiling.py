@@ -2,7 +2,7 @@
 bucket partition, the chunk queue and the ``pack_soa`` kernel's plain
 version) against the JAX ``isect_and_sort`` / ``chunk_queue`` /
 ``pack_soa`` on identical screen-space inputs. Integers and SoA columns
-must be equal."""
+must be equal (the dense SoA below n_isect; it is zero past it)."""
 
 import numpy as np
 import pytest
@@ -62,20 +62,70 @@ def test_opacity_cull_and_culled_radii_match_jax(rng):
     assert not np.isin(gids, np.r_[0:60:4, 1:60:5]).any()
 
 
-def test_pack_soa_plain_matches_jax_pack(rng):
-    """The kernel's plain version gathers the (10, N) rows through the slot
-    index; JAX packs the already-gathered rows. Equal bit for bit, pad 0."""
-    N, M, pad = 37, 300, 256
-    table = rng.normal(size=(10, N)).astype(np.float32)
+def _pack_inputs(rng, N=37, M=300, pad=256):
+    """(N, 10) records, (M,) gids and the JAX pack of the gathered rows."""
+    records = rng.normal(size=(N, 10)).astype(np.float32)
     gid = rng.integers(0, N, size=M).astype(np.int32)
-    rows = tuple(table[i, gid] for i in range(10)) + (gid.astype(np.float32),)
-    j_out = np.asarray(j_pack_soa(to_jax(*rows), pad=pad, interpret=True))
-    t_out = t_tiling.pack_soa_plain(*to_torch(table, gid), pad=pad)
+    rows = tuple(records[gid, i] for i in range(10)) + (gid.astype(np.float32),)
+    return records, gid, np.asarray(j_pack_soa(to_jax(*rows), pad=pad, interpret=True))
+
+
+def test_pack_soa_plain_matches_jax_pack(rng):
+    """The kernel's plain version gathers the (N, 10) records through the
+    slot index; JAX packs the already-gathered rows. Equal bit for bit, pad
+    0."""
+    records, gid, j_out = _pack_inputs(rng)
+    t_out = t_tiling.pack_soa_plain(*to_torch(records, gid), pad=256)
     assert tuple(t_out.shape) == j_out.shape == (16, 8192)
     np.testing.assert_array_equal(t_out.numpy(), j_out)
     # The wrapper takes the plain version for CPU tensors.
-    np.testing.assert_array_equal(t_tiling.pack_soa(*to_torch(table, gid), pad=pad).numpy(),
+    np.testing.assert_array_equal(t_tiling.pack_soa(*to_torch(records, gid), pad=256).numpy(),
                                   j_out)
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 173, 300, 9000])
+def test_pack_soa_n_live_zeroes_the_tail(rng, n_live):
+    """With ``n_live``, plain version and wrapper equal the JAX pack below
+    it and are zero from it on (past M the pad is zero anyway); the shape
+    does not change."""
+    records, gid, j_out = _pack_inputs(rng)
+    nl = torch.tensor([n_live], dtype=torch.int32)
+    for fn in (t_tiling.pack_soa_plain, t_tiling.pack_soa):
+        t_out = fn(*to_torch(records, gid), pad=256, n_live=nl).numpy()
+        assert t_out.shape == j_out.shape
+        np.testing.assert_array_equal(t_out[:, :n_live], j_out[:, :n_live])
+        assert (t_out[:, n_live:] == 0).all()
+
+
+def test_pack_soa_records_equal_the_row_table_gather(rng):
+    """The (N, 10) record table from ``quantity_records`` gives the SoA the
+    (10, N) row table gave: each row gathered on its own through gid."""
+    m, c, col, o, d, _ = to_torch(*screen_gaussians(rng, 50, 64, 48))
+    records = t_tiling.quantity_records(m, c, col, o, d)
+    assert tuple(records.shape) == (50, 10) and records.is_contiguous()
+    table = torch.stack([m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2], o,
+                         col[:, 0], col[:, 1], col[:, 2], d])
+    gid = torch.as_tensor(rng.integers(0, 50, size=700).astype(np.int32))
+    soa = t_tiling.pack_soa(records, gid, pad=256)
+    want = torch.zeros_like(soa)
+    want[:10, :700] = table[:, gid.long()]
+    want[10, :700] = 1.0
+    want[11, :700] = gid.to(torch.float32)
+    assert torch.equal(soa, want)
+
+
+@pytest.mark.parametrize("shape,n", [((64, 48), 150), ((40, 24), 80)])
+def test_dense_soa_is_zero_past_n_isect(rng, shape, n):
+    """The dense binning passes ``tile_starts[T]`` as ``n_live``: the SoA
+    holds the JAX package's columns below n_isect and zeros from it on,
+    where JAX keeps the sentinel slots' rows that no kernel reads."""
+    width, height = shape
+    jb, tb = _both(screen_gaussians(rng, n, width, height), width, height)
+    _assert_same_binning(jb, tb)
+    n_isect = int(tb.n_isect)
+    assert int(tb.tile_starts[-1]) == n_isect > 0
+    assert (tb.sorted_soa[:, n_isect:] == 0).all()
+    assert (np.asarray(jb.sorted_soa)[10, n_isect:t_tiling.total_slots(n, 16, None)] == 1).all()
 
 
 def test_class_caps_total_slots_and_exact_counts(rng):
@@ -173,8 +223,20 @@ def test_chunk_queue_matches_jax(counts, w_cap):
 
 
 def test_pack_soa_checks_arguments():
-    table = torch.zeros((10, 4))
+    records = torch.zeros((4, 10))
     with pytest.raises(ValueError):
-        t_tiling.pack_soa(table, torch.zeros(8, dtype=torch.int64), pad=0)
+        t_tiling.pack_soa(records, torch.zeros(8, dtype=torch.int64), pad=0)
     with pytest.raises(ValueError):
-        t_tiling.pack_soa(torch.zeros((9, 4)), torch.zeros(8, dtype=torch.int32), pad=0)
+        t_tiling.pack_soa(torch.zeros((10, 4)), torch.zeros(8, dtype=torch.int32), pad=0)
+
+
+@pytest.mark.parametrize("n_live", [torch.tensor([3], dtype=torch.int64),
+                                    torch.tensor([3.0]),
+                                    torch.tensor([3, 4], dtype=torch.int32),
+                                    torch.zeros((0,), dtype=torch.int32),
+                                    torch.tensor([3], dtype=torch.int32, device="meta")])
+def test_pack_soa_refuses_bad_n_live(n_live):
+    """``n_live`` must be one int32 element on gid's device."""
+    with pytest.raises(ValueError, match="n_live"):
+        t_tiling.pack_soa(torch.zeros((4, 10)), torch.zeros(8, dtype=torch.int32), pad=0,
+                          n_live=n_live)
