@@ -5,7 +5,8 @@ kernels against its plain PyTorch version.
 
 Phases (any failure exits nonzero and prints no result):
 1. build the eight kernels in ``gaussian_splatting_tpu_torch/csrc/`` with
-   nvcc for sm_90a (one process per source, all at once);
+   nvcc for sm_90a (one process per source, all at once) and print each
+   kernel's registers and spills;
 2. the bench scene of ``bench.py`` (numpy seed 0, 1M screen-space
    gaussians, 1920x1080, dense binning, chunk 256): intersection counts
    against the JAX package's recorded ones and, gaussian by gaussian,
@@ -13,7 +14,10 @@ Phases (any failure exits nonzero and prints no result):
    plain version on the sort's own gid, with ``n_live`` (the binning's SoA,
    zero past n_isect) and gathering every column, and the forward kernel
    on that SoA equal to the forward on the full-gather plain SoA bit for
-   bit and within its tolerance of its plain version; then the backward:
+   bit and within its tolerance of its plain version, and the raster
+   kernels' warp cull through its plain mirror (no contributing pair
+   culled, some culled; also at render view 0 and training view 0); then
+   the backward:
    ``bwd_tiles`` + the kernel reduce against ``bwd_tiles_plain`` + the
    plain reduce under a seeded cotangent, and ``pack_rows`` (10 and 11
    rows) and ``segsum`` against their plain versions on the kernel's
@@ -25,6 +29,12 @@ Phases (any failure exits nonzero and prints no result):
    probes;
 3. a small 3D scene rendered through the kernels and through the PyTorch
    oracle, which must agree, images and gradients of every parameter;
+3b. the raster kernels at tile sizes 8, 16 and 32 on adversarial entries
+   for the warp cull (near-singular conics, alpha just above 1/255 at a
+   pixel, entries never to be skipped): one entry a tile, where a wrongly
+   skipped pair would cost at least 1/255, and 48 a tile over two chunks,
+   the forward against its plain version, the queue forward equal to the
+   loop forward bit for bit, the backward + reduce against the plain ones;
 4. the render path: a seeded 3D scene of 1,000,000 gaussians with SH
    degree 3 loaded with ``state_from_numpy``, rendered at 1920x1080 from 4
    ``look_at`` views by ``GaussianRasterizer(backend="auto")``; both of its
@@ -45,13 +55,18 @@ Phases (any failure exits nonzero and prints no result):
    then 4 steps of ``make_train_step(TrainingConfig(sort_buckets=8))``
    from the same noisy state: the loss must descend and the partition
    launch once a view in every step;
-6. timings with CUDA events (medians) at the main paths' shapes: render,
+6. at training view 0, the entries per tile (max, p50, p99, the share in
+   the largest 1 % of tiles), then timings with CUDA events (medians) at
+   the main paths' shapes: render,
    training step (dense and bucket), one view's forward + backward, the
    ``bench.py`` forward + backward workload (loop and queue), binning
    (dense and bucket), and each kernel against its bound, its plain
    version and, where there is one, a PyTorch library call (the two pack
    kernels also against an ``index_select`` moving the same bytes and
-   against writing their output's zeros, in each of their uses);
+   against writing their output's zeros, in each of their uses); the
+   raster kernels' bound counts the operations of the pairs that carry
+   anything, and the operations of every pair evaluated without the cull
+   go beside it as ``bound_unculled_ms``;
 7. one render and one training step traced with ``torch.profiler``: device
    kernels launched, the device's busy and idle share, the kernels taking
    most time.
@@ -127,6 +142,8 @@ BWD_GRAD_FLOPS = 53
 GRAD_ATOL_FRAC, GRAD_RTOL = 2e-4, 1e-3
 GRAD_L2_RTOL, GRAD_L2_SMALL_RTOL = 1e-4, 5e-3
 SEGSUM_ATOL_FRAC = 1e-5
+# The raster kernels' alpha gate (raster_common.cuh::kAlphaSkip).
+ALPHA_SKIP = np.float32(1.0 / 255.0)
 KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
            "rasterize_fwd_q", "rasterize_bwd_q", "partition")
 
@@ -345,9 +362,31 @@ def compare_kernels(sargs, b, tag):
         fail(f"[{tag}] forward kernel disagrees with fwd_tiles_plain")
     if not bool(torch.isfinite(k_out).all()):
         fail(f"[{tag}] forward kernel output is not finite")
+    culled = check_cull(b, tag)
     return {"pack_err": pack_err, "fwd_err": max(err_rgbw, err_depth), "fwd_out": k_out,
             "pairs": int(pairs), "plain_out": p_out, "records": records, "gid": gid,
-            "n_live": n_live}
+            "n_live": n_live, "culled": culled}
+
+
+def check_cull(b, tag):
+    """The raster kernels' warp cull on binning ``b``, through its plain
+    mirror ``warp_cull_plain``: no (warp, entry) pair that it culls may hold
+    a pixel of the warp's 8x4 block where the plain forward's ``contrib``
+    holds, and it must cull some. Returns the culled share of the (warp,
+    entry) pairs."""
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import warp_cull_plain
+
+    keep, touched = warp_cull_plain(b.tile_starts, b.counts, b.sorted_soa, TILE,
+                                    -(-WIDTH // TILE))
+    pairs = keep.numel()
+    missed, n_keep, n_touched = (int(x.sum()) for x in (touched & ~keep, keep, touched))
+    culled = 1.0 - n_keep / pairs
+    log(f"[{tag}] warp cull (plain mirror): {pairs} (warp, entry) pairs, culled "
+        f"{pairs - n_keep} (share {culled:.4f}), with a contributing pixel {n_touched}, "
+        f"contributing pairs culled {missed}")
+    if missed or n_keep == pairs:
+        fail(f"[{tag}] the warp cull skips a contributing pair or culls nothing")
+    return culled
 
 
 def plain_reduce(grad, n, n_written, with_depth):
@@ -716,9 +755,12 @@ def main():
     log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     for k in KERNELS:
+        fn = "?"
         for line in _build.build_log(k).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {k}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "Used" in line or "spill" in line:
+                log(f"[build] {k} {fn}: {line.strip()}")
 
     report = run(torch.device("cuda"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -877,6 +919,148 @@ def small_phase(dev):
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})}")
 
 
+def adversarial_tiles(seed, ts, ntx, nty, per_tile, max_op, max_ratio, finite):
+    """``per_tile`` entries in each tile of a ntx x nty tile image, as the
+    raster kernels take them: tile_starts, counts and a (16, M) SoA (rows
+    10 = 1, 11 = entry index), numpy. They stress the warp cull: means
+    within two tiles of their own tile, footprints from a third of a pixel
+    to four tiles, near-singular conics at any angle (axis ratio from
+    sqrt(max_ratio) to ``max_ratio``), opacities up to ``max_op``, isotropic entries whose alpha at one pixel
+    centre of their tile is 1/255 (1 + 1e-6 to 1e-5), so that the pixel
+    contributes with its q only the gate's 2e-3 inside Q, and entries the
+    cull must never skip: op below 1/255, an indefinite conic and, unless
+    ``finite``, a non-finite mean or conic."""
+    rng = np.random.default_rng(seed)
+    n = ntx * nty * per_tile
+    tile = np.repeat(np.arange(ntx * nty), per_tile)
+    ox, oy = (tile % ntx) * ts, (tile // ntx) * ts
+    kind = rng.integers(0, 5, size=n)
+    s1 = np.exp(rng.uniform(np.log(0.3), np.log(4.0 * ts), size=n))
+    ratio = np.exp(np.where(kind == 1, rng.uniform(0.5, 1.0, size=n) * np.log(max_ratio),
+                            rng.uniform(0.0, np.log(4.0), size=n)))
+    th = rng.uniform(0.0, np.pi, size=n)
+    c, s = np.cos(th), np.sin(th)
+    i1, i2 = 1.0 / s1**2, (ratio / s1) ** 2  # inverse variances along the axes
+    conic = np.stack([c * c * i1 + s * s * i2, c * s * (i1 - i2), s * s * i1 + c * c * i2])
+    means = np.stack([ox + rng.uniform(-2 * ts, 3 * ts, size=n),
+                      oy + rng.uniform(-2 * ts, 3 * ts, size=n)])
+    ops = np.array([float(ALPHA_SKIP) * (1 + 1e-5), float(ALPHA_SKIP) * 1.01, 0.02, 0.05, 0.5,
+                    1.0])
+    op = rng.choice(ops[ops <= max_op], size=n)
+    bnd = kind == 2
+    ci = rng.uniform(0.01, 2.0, size=n)
+    sig = rng.uniform(0.05, np.log(255.0 * max_op) - 1e-3, size=n)
+    px = (ox + rng.integers(0, ts, size=n) + 0.5).astype(np.float32)
+    py = (oy + rng.integers(0, ts, size=n) + 0.5).astype(np.float32)
+    conic[:, bnd] = np.stack([ci, np.zeros(n), ci])[:, bnd]
+    means[:, bnd] = np.stack([px - np.sqrt(2.0 * sig / ci), py])[:, bnd]
+    means, conic = means.astype(np.float32), conic.astype(np.float32)
+    # sigma at the chosen pixel in the kernels' float32 operations and order
+    # (raster_common.cuh::eval_entry), and the opacity that puts that
+    # pixel's alpha just above 1/255.
+    dx, dy = px - means[0], py - means[1]
+    sigma = (np.float32(0.5) * (conic[0] * dx * dx + conic[2] * dy * dy)
+             + conic[1] * dx * dy)
+    u = rng.uniform(1e-6, 1e-5, size=n)
+    op = np.where(bnd, float(ALPHA_SKIP) * np.exp(np.where(bnd, sigma, 0.0)) * (1 + u), op)
+    never = kind == 4
+    sub = rng.integers(0, 2 if finite else 4, size=n)
+    op[never & (sub == 0)] = float(ALPHA_SKIP) * 0.999
+    indef = never & (sub == 1)
+    conic[1, indef] = 2.0 * np.sqrt(conic[0, indef] * conic[2, indef])
+    means[0, never & (sub == 2)] = np.nan
+    conic[2, never & (sub == 3)] = np.inf
+    soa = np.zeros((16, n + 8), np.float32)
+    soa[:10, :n] = np.concatenate([means, conic, op[None], rng.uniform(0.2, 1.0, size=(3, n)),
+                                   rng.uniform(1.0, 10.0, size=(1, n))])
+    soa[10, :n] = 1.0
+    soa[11, :n] = np.arange(n)
+    starts = (np.arange(ntx * nty + 1) * per_tile).astype(np.int32)
+    return starts, np.full(ntx * nty, per_tile, np.int32), soa
+
+
+def adversarial_phase(dev, width=1024, height=512):
+    """Phase 3b: the raster kernels at tile sizes 8, 16 and 32 on
+    ``adversarial_tiles`` against their plain versions. First one entry a
+    tile (all opacities, axis ratios up to 1e4, non-finite entries too,
+    chunk 32): every pixel
+    starts at transmittance 1, so a contributing pair that the warp cull
+    skipped would cost the sum_w row at least 1/255 at its pixel, far above
+    the forward's 1e-5 gate. Then 48 entries a tile (op <= 0.05, chunk 32,
+    so two chunks): the transmittance stays above 0.95^47 ~ 0.09, so a
+    skipped pair still costs 3.5e-4; there also the queue forward equal to
+    the loop forward bit for bit, and the backward + kernel reduce against
+    the plain backward + plain reduce under the backward's gates. That
+    scene's entries are finite (the plain backward's masked products make a
+    NaN mean's terms NaN) and its axis ratios at most 1e2: at 1e4 a mean's
+    gradient is the difference of terms ~1e4 times larger, and the
+    contraction of the kernel's multiply-adds alone moves it by more than
+    the gates. The plain mirror of the cull must find no contributing pair
+    culled, and some culled."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        bwd_tiles, bwd_tiles_plain, cdiv, fwd_tiles, fwd_tiles_plain, fwd_tiles_q,
+        warp_cull_plain)
+    from gaussian_splatting_tpu_torch.ops.tiling import chunk_queue, reduce_padded_grads
+
+    chunk = 32
+    for ts in (8, 16, 32):
+        ntx, nty = width // ts, height // ts
+        for per_tile, max_op, max_ratio, finite in ((1, 1.0, 1e4, False),
+                                                    (48, 0.05, 1e2, True)):
+            tag = f"adversarial ts {ts}, {per_tile} a tile"
+            starts, counts, soa = (torch.as_tensor(x, device=dev) for x in adversarial_tiles(
+                ts + per_tile, ts, ntx, nty, per_tile, max_op, max_ratio, finite))
+            n = int(counts.sum())
+            keep, touched = warp_cull_plain(starts, counts, soa, ts, ntx)
+            missed = int((touched & ~keep).sum())
+            k_out = fwd_tiles(starts, counts, soa, ts, ntx, chunk)
+            p_out, _ = fwd_tiles_plain(starts, counts, soa, ts, ntx, chunk)
+            diff = (k_out - p_out).abs()
+            err_rgbw = float(torch.cat([diff[:, 0:3], diff[:, 4:8]], 1).max())
+            err_depth = float(diff[:, 3].max())
+            n_bad = int(((diff[:, 0:3] > 1e-5).any(1) | (diff[:, 4] > 1e-5)
+                         | (diff[:, 3] > 1e-4)).sum())
+            log(f"[{tag}] {n} entries: mirror culls {float((~keep).float().mean()):.4f} of the "
+                f"(warp, entry) pairs, contributing pairs culled {missed}; forward kernel vs "
+                f"plain: max |diff| rgb/sum_w {err_rgbw:.3e}, depth {err_depth:.3e}, pixels "
+                f"beyond tolerance {n_bad}")
+            if missed or bool(keep.all()):
+                fail(f"[{tag}] the cull's mirror skips a contributing pair or culls nothing")
+            if n_bad or not bool(torch.isfinite(k_out).all()):
+                fail(f"[{tag}] forward kernel disagrees with fwd_tiles_plain")
+            if per_tile == 1:
+                continue
+            wtile, cum, n_work = chunk_queue(counts, chunk, cdiv(n, chunk) + counts.shape[0])
+            q_out = fwd_tiles_q(wtile, cum, starts, counts, n_work.reshape(1), soa, ts, ntx,
+                                chunk)
+            if not torch.equal(q_out, k_out):
+                fail(f"[{tag}] the queue forward differs from the loop forward")
+            gen = torch.Generator(device=dev).manual_seed(ts)
+            gout = torch.randn(k_out.shape, generator=gen, device=dev)
+            gout[:, 5:] = 0.0
+            gcap = cdiv(n, chunk) * chunk
+            k_grad, k_meta = bwd_tiles(starts, counts, soa, gout, k_out, ts, ntx, chunk, n, gcap)
+            k_sums = reduce_padded_grads(k_grad, n, k_meta[0], with_depth=True)
+            p_grad, p_meta, _ = bwd_tiles_plain(starts, counts, soa, gout, k_out, ts, ntx,
+                                                chunk, n, gcap)
+            p_sums = plain_reduce(p_grad, n, p_meta[0], with_depth=True)
+            stats, ok = grad_errors(k_sums, p_sums)
+            km, pm = k_meta.tolist(), p_meta.tolist()
+            log(f"[{tag}] queue forward == loop forward: True; backward kernel + reduce vs "
+                f"plain: meta kernel {km}, plain {pm}; rel_l2 "
+                f"{max(st.get('rel_l2', 0.0) for st in stats.values()):.3e}, smaller half "
+                f"{max(st.get('rel_l2_small', 0.0) for st in stats.values()):.3e}")
+            if km != pm or not ok or not all(bool(torch.isfinite(v).all())
+                                              for v in k_sums.values()):
+                for key, st in stats.items():
+                    log(f"[{tag}]   {key}: " + ", ".join(f"{k} {v:.3e}" for k, v in st.items()))
+                fail(f"[{tag}] backward kernel disagrees with bwd_tiles_plain")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def render_phase(dev, state, views):
     """Phase 4: the render path through the facade."""
     import torch
@@ -977,6 +1161,7 @@ def run(dev):
 
     bench = bench_phase(dev)
     small_phase(dev)
+    adversarial_phase(dev)
 
     scene = scene_3d(N_GAUSSIANS, seed=0)
     state = state_from_numpy(scene, device=dev)
@@ -1053,7 +1238,8 @@ def run(dev):
     kc = compare_kernels(sargs, b, "train view 0")
     pack_err, fwd_err, fwd_out, pairs = (kc[k] for k in ("pack_err", "fwd_err", "fwd_out",
                                                            "pairs"))
-    plain_out, records, gid, n_live = (kc[k] for k in ("plain_out", "records", "gid", "n_live"))
+    plain_out, records, gid, n_live, culled = (kc[k] for k in ("plain_out", "records", "gid",
+                                                               "n_live", "culled"))
     del kc
     bw = compare_backward(b, fwd_out, N_GAUSSIANS, "train view 0", seed=1)
     qerr = compare_queue(b, fwd_out, plain_out, bw, N_GAUSSIANS, "train view 0")
@@ -1067,6 +1253,14 @@ def run(dev):
     n_is = int(b.n_isect)
     ntx = cdiv(WIDTH, TILE)
     N = N_GAUSSIANS
+    cnt = b.counts.double()
+    top = torch.sort(cnt, descending=True).values
+    n_top = cdiv(T, 100)
+    log(f"[train view 0] entries per tile over {T} tiles: max {int(top[0])}, p50 "
+        f"{float(torch.quantile(cnt, 0.5)):.1f}, p99 {float(torch.quantile(cnt, 0.99)):.1f}, "
+        f"mean {float(cnt.mean()):.1f}; share of the entries in the largest 1 % of tiles "
+        f"({n_top}) {float(top[:n_top].sum() / cnt.sum()):.4f}")
+    del cnt, top
 
     binning_ms = cuda_ms(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T), reps=5)
     binning_bucket_ms = cuda_ms(lambda: isect_and_sort(
@@ -1173,6 +1367,17 @@ def run(dev):
                      + 64 * n_written + 12) / HBM_BYTES_PER_S * 1e3)
     bwd_ops_ms = ((pairs * BWD_RECOMPUTE_FLOPS + bw["active"] * BWD_GRAD_FLOPS)
                   / FP32_FLOPS * 1e3)
+    # The raster kernels' bound: the bytes above, and the operations of the
+    # pairs that carry anything (they count with alpha != 0: the pairs with
+    # gradient terms), all that these inputs need once a cull skips the
+    # rest. The operations above, of every pair the sweep evaluates without
+    # the cull, go into the kernels line as bound_unculled_ms, comparable
+    # with the bound of runs made before the kernels culled.
+    fwd_needed_ops_ms = bw["active"] * FWD_FLOPS_PER_PAIR / FP32_FLOPS * 1e3
+    bwd_needed_ops_ms = (bw["active"] * (BWD_RECOMPUTE_FLOPS + BWD_GRAD_FLOPS)
+                         / FP32_FLOPS * 1e3)
+    fwd_needed_ms = max(fwd_bytes_ms, fwd_needed_ops_ms)
+    bwd_needed_ms = max(bwd_bytes_ms, bwd_needed_ops_ms)
     # The entries the backward wrote (the rest of the stream, up to
     # grad_cap, is sentinel): only these carry payload.
     n_real = int((key < N).sum())
@@ -1219,9 +1424,12 @@ def run(dev):
         f"{shade_fb_ms:.3f} ms; photometric loss forward and backward {loss_ms:.3f} ms; "
         f"Adam over all groups {adam_ms:.3f} ms")
     log(f"[time] bounds: forward bytes {fwd_bytes_ms:.4f} / operations {fwd_ops_ms:.4f} ms; "
-        f"backward bytes {bwd_bytes_ms:.4f} / operations {bwd_ops_ms:.4f} ms; pack_rows "
-        f"{prow_bound:.4f} ms; segsum {seg_bound:.4f} ms ({n_real} real entries of "
-        f"{stacked.shape[1]} columns); launches per step {per_step}; render path launches "
+        f"backward bytes {bwd_bytes_ms:.4f} / operations {bwd_ops_ms:.4f} ms (every pair "
+        f"evaluated without the cull); operations of the {bw['active']} pairs that carry "
+        f"anything: forward {fwd_needed_ops_ms:.4f} ms, backward {bwd_needed_ops_ms:.4f} ms; "
+        f"bounds: forward {fwd_needed_ms:.4f} ms, backward {bwd_needed_ms:.4f} ms; warp cull "
+        f"share at train view 0 {culled:.4f}; pack_rows {prow_bound:.4f} ms; segsum "
+        f"{seg_bound:.4f} ms ({n_real} real entries of {stacked.shape[1]} columns); launches per step {per_step}; render path launches "
         f"{render_launches}")
     log(f"[time] library yardsticks: segsum index_add_ on (16, N+1) {seg_lib_cols_ms:.3f} ms, "
         f"on (N+1, 16) {seg_lib_rows_ms:.3f} ms; pack_rows index_select {prow_lib_ms:.3f} ms; "
@@ -1263,37 +1471,43 @@ def run(dev):
                     rasterize_bwd_q=bench["queue_launches"]["rasterize_bwd_q"],
                     partition=blaunches["partition"])
 
-    def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms):
+    def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"gaussian_splatting_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms}
+                "library_ms": lib_ms, **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"
+
+    def raster_bound(bytes_ms, needed_ops_ms, unculled_ops_ms):
+        return {"bound_ms": max(bytes_ms, needed_ops_ms), "bound_by": by(bytes_ms, needed_ops_ms),
+                "bound_unculled_ms": max(bytes_ms, unculled_ops_ms)}
 
     return {"kernels": [
         row("pack_soa", "pack_soa.cu", "gaussian_splatting_tpu/ops/tiling.py:335",
             pack_err, pack_ms, pack_plain_ms, pack_bound, "bytes", pack_lib_ms),
         row("rasterize_fwd", "rasterize_fwd.cu",
             "gaussian_splatting_tpu/ops/rasterize_pallas.py:130", fwd_err, fwd_ms,
-            fwd_plain_ms, max(fwd_bytes_ms, fwd_ops_ms), by(fwd_bytes_ms, fwd_ops_ms), None),
+            fwd_plain_ms, lib_ms=None,
+            **raster_bound(fwd_bytes_ms, fwd_needed_ops_ms, fwd_ops_ms)),
         row("rasterize_bwd", "rasterize_bwd.cu",
             "gaussian_splatting_tpu/ops/rasterize_pallas.py:217", bw["bwd_err"], bwd_ms,
-            bwd_plain_ms, max(bwd_bytes_ms, bwd_ops_ms), by(bwd_bytes_ms, bwd_ops_ms), None),
+            bwd_plain_ms, lib_ms=None,
+            **raster_bound(bwd_bytes_ms, bwd_needed_ops_ms, bwd_ops_ms)),
         row("pack_rows", "pack_rows.cu", "gaussian_splatting_tpu/ops/tiling.py:386",
             bw["pack_rows_err"], prow_ms, prow_plain_ms, prow_bound, "bytes", prow_lib_ms),
         row("segsum", "segsum.cu", "gaussian_splatting_tpu/ops/segsum.py:49",
             bw["segsum_err"], seg_ms, seg_plain_ms, seg_bound, "bytes", seg_lib_ms),
         row("rasterize_fwd_q", "rasterize_fwd_q.cu",
             "gaussian_splatting_tpu/ops/rasterize_pallas.py:446", qerr["fwd_q_err"], fwd_q_ms,
-            fwd_q_plain_ms, max(fwd_bytes_ms + queue_bytes_ms, fwd_ops_ms),
-            by(fwd_bytes_ms + queue_bytes_ms, fwd_ops_ms), None),
+            fwd_q_plain_ms, lib_ms=None,
+            **raster_bound(fwd_bytes_ms + queue_bytes_ms, fwd_needed_ops_ms, fwd_ops_ms)),
         row("rasterize_bwd_q", "rasterize_bwd_q.cu",
             "gaussian_splatting_tpu/ops/rasterize_pallas.py:565", qerr["bwd_q_err"], bwd_q_ms,
-            bwd_q_plain_ms, max(bwd_bytes_ms + queue_bytes_ms, bwd_ops_ms),
-            by(bwd_bytes_ms + queue_bytes_ms, bwd_ops_ms), None),
+            bwd_q_plain_ms, lib_ms=None,
+            **raster_bound(bwd_bytes_ms + queue_bytes_ms, bwd_needed_ops_ms, bwd_ops_ms)),
         row("partition", "partition.cu", "gaussian_splatting_tpu/ops/partition.py:77",
             part_err, part_ms, part_plain_ms, part_bound, "bytes", None),
     ]}

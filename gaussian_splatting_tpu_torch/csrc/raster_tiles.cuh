@@ -9,10 +9,57 @@
 // intrinsic (the accumulations are __fmaf_rn, which is what nvcc's default
 // contraction made of `acc += w * c`), so neither kernel's compilation can
 // contract or reorder it differently.
+//
+// Design for the H100. Only about one (pixel, entry) pair in eight carries
+// anything: binning culls an entry at tile granularity, and a gaussian covers
+// a small part of its tiles. So each warp covers a compact 8x4 pixel block
+// (tile_pixel), and before a group of 32 staged entries is walked, lane j
+// tests entry j against the warp's rectangle of pixel centres (warp_may_hit);
+// one __ballot_sync gives the group's mask, and every thread walks only the
+// set bits, in order, with the sequential arithmetic of raster_common.cuh.
+//
+// The test is the binning's exact one (ops/tiling.py, _slot_tiles): the
+// minimum of q = ca dx^2 + 2 cb dx dy + cc dy^2 over the rectangle (0 when the
+// mean is inside, else the least of the four edges' minima) against the gate
+// threshold Q = 2 (ln(255 op) + 1e-3), staged once per entry (cull_gate). Q
+// sits 2e-3 above where op e^(-q/2) crosses 1/255, which covers the rounding
+// of expf and logf; the comparison adds 1e-5 of the largest magnitude of q's
+// terms over the rectangle, which covers the rounding of sigma in
+// eval_entry and of q here (each a few float32 ulps of those terms), so the
+// test never skips a pair the kernel would find contributing. An entry with
+// op < 1/255, a conic that is not positive definite or any non-finite
+// payload value gets Q = +inf and is never skipped.
+//
+// Why skipping is exact: a skipped pair has contrib == false, so alpha = 0 and
+// next_prod(prod, 0) == prod exactly. Such an entry always counts, since
+// tcar * prod > 1e-4 held after the last counted entry (and tcar > 1e-4 at the
+// start of a chunk). Its weight is 0, and __fmaf_rn(0, c, acc) == acc for a
+// finite c and an accumulator that is never -0; the backward computes no
+// terms for it, and its stream column holds zeros either way. So the forward
+// output is the unculled walk's bit for bit, and the backward's sums differ
+// only by the order of the warp reduction below.
+//
+// The backward sums an entry's ten gradient terms over the warp with a
+// transposed reduction (warp_sum_scatter): the ten values, padded to 16, are
+// halved at each butterfly step (xor 16: 8 values, 8: 4, 4: 2, 2: 1, then 1),
+// 16 shuffles instead of ten 5-step reductions' 50. Lane 2r then holds sum r,
+// and the ten lanes add their sums into the shared accumulators with one
+// atomicAdd instruction; the accumulator rows are an odd number of floats
+// apart, so the ten addresses fall in ten banks.
+//
+// Bound: what these inputs need is the forward's ~32 and the backward's
+// ~76 float32 operations for each pair that carries anything (alpha != 0),
+// beside the bytes of the SoA, the per-pixel rows and the stream; at the
+// bench scenes' density the bytes are the larger (chip_smoke.py counts
+// both). The kernels do more: each thread evaluates every entry its warp
+// keeps (about 2.5 for each one its pixel takes), and the cull costs ~40
+// operations per (warp, entry), one lane's test, against 32 pairs'
+// evaluation.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "raster_common.cuh"
@@ -20,60 +67,167 @@
 namespace gs {
 namespace {
 
-constexpr int kGradRows = 10;   // dmx dmy dA dB dC dop dr dg db ddepth
-constexpr int kStageRows = 11;  // SoA rows 0..9 and the id (row 11)
+constexpr int kGradRows = 10;     // dmx dmy dA dB dC dop dr dg db ddepth
+constexpr int kGateRow = 10;      // staged row of the cull threshold Q
+constexpr int kFwdStageRows = 11; // SoA rows 0..9, Q
+constexpr int kBwdStageRows = 12; // SoA rows 0..9, Q, the id (SoA row 11)
 constexpr unsigned kFull = 0xffffffffu;
+// Relative slack of the cull against the rounding of q and sigma.
+constexpr float kCullSlack = 1e-5f;
 
-// Centre of pixel p of tile t, in image coordinates.
-__device__ __forceinline__ void pixel_center(int t, int ntx, int ts, int p, float* px,
-                                             float* py) {
-  *px = (float)((t % ntx) * ts + p % ts) + 0.5f;
-  *py = (float)((t / ntx) * ts + p / ts) + 0.5f;
+// Dynamic shared memory of the forward and backward chunk bodies.
+__host__ __device__ constexpr int acc_stride(int chunk) { return chunk | 1; }
+__host__ __device__ constexpr size_t fwd_smem_bytes(int chunk) {
+  return (size_t)kFwdStageRows * chunk * sizeof(float);
+}
+__host__ __device__ constexpr size_t bwd_smem_bytes(int chunk) {
+  return ((size_t)kBwdStageRows * chunk + (size_t)kGradRows * acc_stride(chunk)) * sizeof(float);
+}
+
+// The pixel of this thread. Warp w covers the 8x4 block (w % (ts / 8),
+// w / (ts / 8)) of its tile, lane l the pixel (l % 8, l / 8) of the block;
+// p indexes the tile's pixels in row-major order, as the outputs do.
+struct Pixel {
+  int p;
+  float px, py;          // centre in image coordinates
+  float xl, xh, yl, yh;  // outermost pixel centres of the warp's block
+};
+
+__device__ __forceinline__ Pixel tile_pixel(int t, int ntx, int ts) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, wpr = ts >> 3;
+  const int bx = (w % wpr) * 8, by = (w / wpr) * 4;
+  const int x0 = (t % ntx) * ts + bx, y0 = (t / ntx) * ts + by;
+  Pixel q;
+  q.p = (by + (lane >> 3)) * ts + bx + (lane & 7);
+  q.px = (float)(x0 + (lane & 7)) + 0.5f;
+  q.py = (float)(y0 + (lane >> 3)) + 0.5f;
+  q.xl = (float)x0 + 0.5f;
+  q.xh = (float)(x0 + 7) + 0.5f;
+  q.yl = (float)y0 + 0.5f;
+  q.yh = (float)(y0 + 3) + 0.5f;
+  return q;
+}
+
+// The cull threshold of one entry from its SoA rows 0..9: Q = 2 (ln(255 op)
+// + 1e-3), or +inf (never skipped) unless op >= 1/255, the conic is positive
+// definite and every value is finite.
+__device__ __forceinline__ float cull_gate(const float (&e)[10]) {
+  bool ok = true;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) ok &= isfinite(e[r]);
+  const float ca = e[2], cb = e[3], cc = e[4], op = e[5];
+  const float det = __fsub_rn(__fmul_rn(ca, cc), __fmul_rn(cb, cb));
+  ok &= op >= kAlphaSkip && ca > 0.f && cc > 0.f && det > 0.f;
+  return ok ? __fmul_rn(2.f, __fadd_rn(logf(__fmul_rn(255.f, op)), 1e-3f)) : INFINITY;
+}
+
+// ca qx^2 + 2 cb qx qy + cc qy^2, in the binning's order.
+__device__ __forceinline__ float quad(float ca, float cb, float cc, float qx, float qy) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(ca, qx), qx),
+                             __fmul_rn(__fmul_rn(__fmul_rn(2.f, cb), qx), qy)),
+                   __fmul_rn(__fmul_rn(cc, qy), qy));
+}
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// False only if no pixel centre of the warp's block can make the entry
+// contribute (see the header comment). ops/rasterize_cuda.py::warp_cull_plain
+// mirrors it operation for operation.
+__device__ __forceinline__ bool warp_may_hit(const Pixel& q, float mx, float my, float ca,
+                                             float cb, float cc, float gate) {
+  const float dxl = __fsub_rn(q.xl, mx), dxh = __fsub_rn(q.xh, mx);
+  const float dyl = __fsub_rn(q.yl, my), dyh = __fsub_rn(q.yh, my);
+  if (dxl <= 0.f && dxh >= 0.f && dyl <= 0.f && dyh >= 0.f) return true;
+  const float ex0 = quad(ca, cb, cc, dxl, clip(__fdiv_rn(__fmul_rn(-cb, dxl), cc), dyl, dyh));
+  const float ex1 = quad(ca, cb, cc, dxh, clip(__fdiv_rn(__fmul_rn(-cb, dxh), cc), dyl, dyh));
+  const float ey0 = quad(ca, cb, cc, clip(__fdiv_rn(__fmul_rn(-cb, dyl), ca), dxl, dxh), dyl);
+  const float ey1 = quad(ca, cb, cc, clip(__fdiv_rn(__fmul_rn(-cb, dyh), ca), dxl, dxh), dyh);
+  const float q_min = fminf(fminf(ex0, ex1), fminf(ey0, ey1));
+  const float X = fmaxf(fabsf(dxl), fabsf(dxh)), Y = fmaxf(fabsf(dyl), fabsf(dyh));
+  const float scale = quad(ca, fabsf(cb), cc, X, Y);
+  return !(q_min > __fadd_rn(gate, __fmul_rn(kCullSlack, scale)));
+}
+
+// The group's mask: bit j set unless entry g + j (< n) is culled for this
+// warp. Every lane of the warp must call it.
+__device__ __forceinline__ unsigned group_hits(const Pixel& q, const float* sh, int chunk,
+                                               int g, int n) {
+  const int k = g + (threadIdx.x & 31);
+  const bool hit = k < n && warp_may_hit(q, sh[k], sh[chunk + k], sh[2 * chunk + k],
+                                         sh[3 * chunk + k], sh[4 * chunk + k],
+                                         sh[kGateRow * chunk + k]);
+  return __ballot_sync(kFull, hit);
+}
+
+// Stage the chunk [col0, col0 + n) of the (16, soa_cols) SoA: rows 0..9 in
+// sh[r * chunk + k], Q in row kGateRow and, with the id, SoA row 11 in row 11.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ soa, int64_t soa_cols,
+                                            int64_t col0, int n, int chunk, float* sh,
+                                            bool with_id) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int64_t col = col0 + k;
+    float e[10];
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+      e[r] = soa[r * soa_cols + col];
+      sh[r * chunk + k] = e[r];
+    }
+    sh[kGateRow * chunk + k] = cull_gate(e);
+    if (with_id) sh[11 * chunk + k] = soa[11 * soa_cols + col];
+  }
 }
 
 struct FwdAcc {
   float r = 0.f, g = 0.f, b = 0.f, d = 0.f, w = 0.f;
 };
 
-// Blend the chunk [col0, col0 + n) of the (16, soa_cols) SoA into one
-// pixel's sums. The block stages rows 0..9 in sh (10 * chunk floats); each
-// thread then walks the chunk and leaves it at its first entry that fails
-// the stop rule. tcar, the transmittance after the last counted entry,
-// carries from one chunk to the next.
+// Blend the chunk [col0, col0 + n) into one pixel's sums. sh holds
+// kFwdStageRows * chunk floats. Each thread walks the entries its warp did
+// not cull and leaves the chunk at its first entry that fails the stop rule.
+// tcar, the transmittance after the last counted entry, carries from one
+// chunk to the next.
 __device__ __forceinline__ void fwd_chunk(const float* __restrict__ soa, int64_t soa_cols,
                                           int64_t col0, int n, int chunk, float* sh,
-                                          float px, float py, float* tcar, FwdAcc* acc) {
-  const int P = blockDim.x;
-  const int p = threadIdx.x;
+                                          const Pixel& q, float* tcar, FwdAcc* acc) {
   __syncthreads();  // the previous chunk is no longer read
-  for (int k = p; k < n; k += P) {
-#pragma unroll
-    for (int r = 0; r < 10; ++r) sh[r * chunk + k] = soa[r * soa_cols + col0 + k];
-  }
+  stage_chunk(soa, soa_cols, col0, n, chunk, sh, false);
   __syncthreads();
 
   const float tc = *tcar;
   float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
-  for (int k = 0; k < n; ++k) {
-    const Entry e = eval_entry(px, py, sh[k], sh[chunk + k], sh[2 * chunk + k],
-                               sh[3 * chunk + k], sh[4 * chunk + k], sh[5 * chunk + k]);
-    const float prod_next = next_prod(prod, e.alpha);
-    if (!entry_counts(tc, prod_next)) break;
-    const float w = __fmul_rn(__fmul_rn(e.alpha, tc), prod);
-    acc->r = __fmaf_rn(w, sh[6 * chunk + k], acc->r);
-    acc->g = __fmaf_rn(w, sh[7 * chunk + k], acc->g);
-    acc->b = __fmaf_rn(w, sh[8 * chunk + k], acc->b);
-    acc->d = __fmaf_rn(w, sh[9 * chunk + k], acc->d);
-    acc->w = __fadd_rn(acc->w, w);
-    prod = prod_next;
+  bool done = false;
+  for (int g = 0; g < n && !__all_sync(kFull, done); g += 32) {
+    unsigned hits = group_hits(q, sh, chunk, g, n);
+    if (done) continue;  // no warp-wide operation follows in this group
+    while (hits) {
+      const int k = g + __ffs(hits) - 1;
+      hits &= hits - 1;
+      const Entry e = eval_entry(q.px, q.py, sh[k], sh[chunk + k], sh[2 * chunk + k],
+                                 sh[3 * chunk + k], sh[4 * chunk + k], sh[5 * chunk + k]);
+      const float prod_next = next_prod(prod, e.alpha);
+      if (!entry_counts(tc, prod_next)) {
+        done = true;
+        break;
+      }
+      const float w = __fmul_rn(__fmul_rn(e.alpha, tc), prod);
+      acc->r = __fmaf_rn(w, sh[6 * chunk + k], acc->r);
+      acc->g = __fmaf_rn(w, sh[7 * chunk + k], acc->g);
+      acc->b = __fmaf_rn(w, sh[8 * chunk + k], acc->b);
+      acc->d = __fmaf_rn(w, sh[9 * chunk + k], acc->d);
+      acc->w = __fadd_rn(acc->w, w);
+      prod = prod_next;
+    }
   }
   *tcar = __fmul_rn(tc, prod);
 }
 
-// out[t] = (8, P) rows [r, g, b, depth, sum_w, 0, 0, 0].
-__device__ __forceinline__ void fwd_store(float* __restrict__ out, int t, const FwdAcc& a) {
+// out[t] = (8, P) rows [r, g, b, depth, sum_w, 0, 0, 0] at pixel p.
+__device__ __forceinline__ void fwd_store(float* __restrict__ out, int t, int p,
+                                          const FwdAcc& a) {
   const int P = blockDim.x;
-  float* o = out + (int64_t)t * 8 * P + threadIdx.x;
+  float* o = out + (int64_t)t * 8 * P + p;
   o[0] = a.r;
   o[P] = a.g;
   o[2 * P] = a.b;
@@ -84,10 +238,32 @@ __device__ __forceinline__ void fwd_store(float* __restrict__ out, int t, const 
   o[7 * P] = 0.f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One butterfly step of the transposed reduction: lanes with bit `o` set keep
+// the upper half of a[0, 2h), the others the lower half, each adding the
+// partner's copy of the half it keeps; the kept half moves to a[0, h).
+template <int H>
+__device__ __forceinline__ void scatter_step(float (&a)[16], int lane) {
+  const bool up = lane & (2 * H);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+  for (int i = 0; i < H; ++i) {
+    const float keep = up ? a[i + H] : a[i];
+    const float send = up ? a[i] : a[i + H];
+    a[i] = keep + __shfl_xor_sync(kFull, send, 2 * H);
+  }
+}
+
+// The warp's sums of v[0..kGradRows): lane l returns the sum of v[l >> 1]
+// (for l < 2 * kGradRows; other lanes return zero sums of the padding).
+__device__ __forceinline__ float warp_sum_scatter(const float (&v)[kGradRows]) {
+  const int lane = threadIdx.x & 31;
+  float a[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = i < kGradRows ? v[i] : 0.f;
+  scatter_step<8>(a, lane);
+  scatter_step<4>(a, lane);
+  scatter_step<2>(a, lane);
+  scatter_step<1>(a, lane);
+  return a[0] + __shfl_xor_sync(kFull, a[0], 1);
 }
 
 // One pixel's cotangent of the forward output rows [r, g, b, depth, sum_w]
@@ -97,10 +273,10 @@ struct BwdPixel {
 };
 
 __device__ __forceinline__ BwdPixel bwd_pixel(const float* __restrict__ gout,
-                                              const float* __restrict__ fout, int t) {
+                                              const float* __restrict__ fout, int t, int p) {
   const int P = blockDim.x;
-  const float* g = gout + (int64_t)t * 8 * P + threadIdx.x;
-  const float* f = fout + (int64_t)t * 8 * P + threadIdx.x;
+  const float* g = gout + (int64_t)t * 8 * P + p;
+  const float* f = fout + (int64_t)t * 8 * P + p;
   BwdPixel b{g[0], g[P], g[2 * P], g[3 * P], g[4 * P], 0.f};
 #pragma unroll
   for (int c = 0; c < 8; ++c) b.q += g[c * P] * f[c * P];
@@ -108,29 +284,28 @@ __device__ __forceinline__ BwdPixel bwd_pixel(const float* __restrict__ gout,
 }
 
 // The backward of the chunk [col0, col0 + n): recompute the forward's
-// alphas and stop rule, sum each entry's ten gradient terms over the tile's
-// pixels, and append the chunk's n columns to grad (16, grad_cap) at a base
-// reserved with one atomicAdd on *cursor. sh holds the staged rows
-// (kStageRows * chunk floats) followed by the sums (kGradRows * chunk);
-// s_base is one shared int. tcar and pcar (the running prefix of gw * w)
-// carry from one chunk to the next.
+// alphas and stop rule over the entries the warp did not cull, sum each
+// entry's ten gradient terms over the tile's pixels, and append the chunk's
+// n columns to grad (16, grad_cap) at a base reserved with one atomicAdd on
+// *cursor. sh holds the staged rows (kBwdStageRows * chunk floats) followed
+// by the sums (acc[r * acc_stride(chunk) + k], r < kGradRows); s_base is one
+// shared int. tcar and pcar (the running prefix of gw * w) carry from one
+// chunk to the next.
 __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t soa_cols,
                                           int64_t col0, int n, int chunk, float* sh,
-                                          int* s_base, float px, float py, const BwdPixel& gp,
+                                          int* s_base, const Pixel& q, const BwdPixel& gp,
                                           float* tcar, float* pcar,
                                           float* __restrict__ grad, int64_t grad_cap,
                                           int* __restrict__ cursor) {
   const int P = blockDim.x;
-  const int p = threadIdx.x;
-  float* acc = sh + kStageRows * chunk;  // sums: acc[r * chunk + k], r < 10
+  const int lane = threadIdx.x & 31;
+  const int as = acc_stride(chunk);
+  float* acc = sh + kBwdStageRows * chunk;
   __syncthreads();  // the previous chunk's rows and sums are no longer read
-  for (int k = p; k < n; k += P) {
-    const int64_t col = col0 + k;
+  stage_chunk(soa, soa_cols, col0, n, chunk, sh, true);
+  for (int k = threadIdx.x; k < n; k += P) {
 #pragma unroll
-    for (int r = 0; r < 10; ++r) sh[r * chunk + k] = soa[r * soa_cols + col];
-    sh[10 * chunk + k] = soa[11 * soa_cols + col];
-#pragma unroll
-    for (int r = 0; r < kGradRows; ++r) acc[r * chunk + k] = 0.f;
+    for (int r = 0; r < kGradRows; ++r) acc[r * as + k] = 0.f;
   }
   __syncthreads();
 
@@ -138,64 +313,66 @@ __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t
   float pc = *pcar;
   float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
   bool done = false;
-  for (int k = 0; k < n; ++k) {
-    float v[kGradRows];
+  for (int g = 0; g < n && !__all_sync(kFull, done); g += 32) {
+    unsigned hits = group_hits(q, sh, chunk, g, n);
+    while (hits) {
+      const int k = g + __ffs(hits) - 1;
+      hits &= hits - 1;
+      float v[kGradRows];
 #pragma unroll
-    for (int r = 0; r < kGradRows; ++r) v[r] = 0.f;
-    bool active = false;
-    if (!done) {
-      const float ca = sh[2 * chunk + k], cb = sh[3 * chunk + k], cc = sh[4 * chunk + k];
-      const Entry e = eval_entry(px, py, sh[k], sh[chunk + k], ca, cb, cc, sh[5 * chunk + k]);
-      const float prod_next = next_prod(prod, e.alpha);
-      if (!entry_counts(tc, prod_next)) {
-        done = true;
-      } else {
-        if (e.contrib) {
-          const float t_before = tc * prod;
-          const float w = e.alpha * t_before;
-          const float gw = gp.g_r * sh[6 * chunk + k] + gp.g_g * sh[7 * chunk + k] +
-                           gp.g_b * sh[8 * chunk + k] + gp.g_d * sh[9 * chunk + k] + gp.g_w;
-          pc += gw * w;
-          const float d_alpha = gw * t_before - (gp.q - pc) / (1.0f - e.alpha);
-          const bool gate = e.araw <= kAlphaClamp;
-          const float ds = gate ? -d_alpha * e.araw : 0.f;
-          v[0] = -(ca * e.dx + cb * e.dy) * ds;
-          v[1] = -(cc * e.dy + cb * e.dx) * ds;
-          v[2] = 0.5f * e.dx * e.dx * ds;
-          v[3] = e.dx * e.dy * ds;
-          v[4] = 0.5f * e.dy * e.dy * ds;
-          v[5] = gate ? d_alpha * e.vis : 0.f;
-          v[6] = w * gp.g_r;
-          v[7] = w * gp.g_g;
-          v[8] = w * gp.g_b;
-          v[9] = w * gp.g_d;
-          active = true;
+      for (int r = 0; r < kGradRows; ++r) v[r] = 0.f;
+      bool active = false;
+      if (!done) {
+        const float ca = sh[2 * chunk + k], cb = sh[3 * chunk + k], cc = sh[4 * chunk + k];
+        const Entry e = eval_entry(q.px, q.py, sh[k], sh[chunk + k], ca, cb, cc,
+                                   sh[5 * chunk + k]);
+        const float prod_next = next_prod(prod, e.alpha);
+        if (!entry_counts(tc, prod_next)) {
+          done = true;
+        } else {
+          if (e.contrib) {
+            const float t_before = tc * prod;
+            const float w = e.alpha * t_before;
+            const float gw = gp.g_r * sh[6 * chunk + k] + gp.g_g * sh[7 * chunk + k] +
+                             gp.g_b * sh[8 * chunk + k] + gp.g_d * sh[9 * chunk + k] + gp.g_w;
+            pc += gw * w;
+            const float d_alpha = gw * t_before - (gp.q - pc) / (1.0f - e.alpha);
+            const bool gate = e.araw <= kAlphaClamp;
+            const float ds = gate ? -d_alpha * e.araw : 0.f;
+            v[0] = -(ca * e.dx + cb * e.dy) * ds;
+            v[1] = -(cc * e.dy + cb * e.dx) * ds;
+            v[2] = 0.5f * e.dx * e.dx * ds;
+            v[3] = e.dx * e.dy * ds;
+            v[4] = 0.5f * e.dy * e.dy * ds;
+            v[5] = gate ? d_alpha * e.vis : 0.f;
+            v[6] = w * gp.g_r;
+            v[7] = w * gp.g_g;
+            v[8] = w * gp.g_b;
+            v[9] = w * gp.g_d;
+            active = true;
+          }
+          prod = prod_next;
         }
-        prod = prod_next;
       }
-    }
-    if (__any_sync(kFull, active)) {
-#pragma unroll
-      for (int r = 0; r < kGradRows; ++r) v[r] = warp_sum(v[r]);
-      if ((p & 31) == 0) {
-#pragma unroll
-        for (int r = 0; r < kGradRows; ++r) atomicAdd(&acc[r * chunk + k], v[r]);
+      if (__any_sync(kFull, active)) {
+        const float s = warp_sum_scatter(v);
+        if (!(lane & 1) && (lane >> 1) < kGradRows) atomicAdd(&acc[(lane >> 1) * as + k], s);
       }
+      if (__all_sync(kFull, done)) break;
     }
-    if (__all_sync(kFull, done)) break;
   }
   *tcar = __fmul_rn(tc, prod);
   *pcar = pc;
   __syncthreads();  // every warp's sums are in
 
-  if (p == 0) *s_base = atomicAdd(cursor, n);
+  if (threadIdx.x == 0) *s_base = atomicAdd(cursor, n);
   __syncthreads();
-  for (int k = p; k < n; k += P) {
+  for (int k = threadIdx.x; k < n; k += P) {
     const int64_t pos = (int64_t)*s_base + k;
     if (pos >= grad_cap) continue;
-    grad[pos] = sh[10 * chunk + k];
+    grad[pos] = sh[11 * chunk + k];
 #pragma unroll
-    for (int r = 0; r < kGradRows; ++r) grad[(r + 1) * grad_cap + pos] = acc[r * chunk + k];
+    for (int r = 0; r < kGradRows; ++r) grad[(r + 1) * grad_cap + pos] = acc[r * as + k];
 #pragma unroll
     for (int r = 11; r < 16; ++r) grad[r * grad_cap + pos] = 0.f;
   }

@@ -39,15 +39,23 @@
 // carried T never falls to 1e-4, ROADMAP queue 3), every chunk of every
 // tile is swept.
 //
-// Bound on the H100: operations, ~76 float32 operations per (pixel, entry)
-// pair evaluated (chip_smoke.py lists them), against ~44 bytes of SoA per
-// entry shared by the block's 256 pixels. Design: one block per tile, one
-// thread per pixel, each chunk's rows staged once in shared memory; each
-// thread walks the chunk sequentially (the products and the prefix sum are
-// sequential); the ten per-entry sums are reduced over the warp with
-// shuffles, skipped when no lane of the warp touches the entry, and added
-// into shared-memory accumulators with one float atomic per warp; a warp
-// leaves the chunk once all its pixels have stopped.
+// Bound on the H100: bytes at the bench scenes' density: ~44 bytes of SoA
+// per entry, the cotangent and forward output (64 bytes a pixel) and the
+// 64-byte stream column per entry. The ~76 float32 operations per (pixel,
+// entry) pair (chip_smoke.py lists them) are needed only for the pairs
+// with gradient terms, about one in eight there, and take less (without
+// the cull every pair would need the 23 of the recomputation, an
+// operations bound). Design (raster_tiles.cuh): one block per tile, one thread
+// per pixel, each chunk's rows and each entry's cull threshold staged once
+// in shared memory; each warp covers an 8x4 pixel block and skips, by an
+// exact ellipse-rectangle test and one ballot per 32 entries, the entries
+// that contribute to none of its pixels; each thread walks the rest
+// sequentially (the products and the prefix sum are sequential); the ten
+// per-entry sums are reduced over the warp by a transposed butterfly (16
+// shuffles, each lane left with one sum), skipped when no lane of the warp
+// touches the entry, and ten lanes add them into shared-memory accumulators
+// with one atomic instruction; a warp leaves the chunk once all its pixels
+// have stopped.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,15 +79,14 @@ __global__ void rasterize_bwd_kernel(const int* __restrict__ tile_starts,
   const int t = blockIdx.x;
   const int64_t start = tile_starts[t];
   const int count = counts[t];
-  float px, py;
-  gs::pixel_center(t, ntx, ts, threadIdx.x, &px, &py);
-  const gs::BwdPixel gp = gs::bwd_pixel(gout, fout, t);
+  const gs::Pixel q = gs::tile_pixel(t, ntx, ts);
+  const gs::BwdPixel gp = gs::bwd_pixel(gout, fout, t, q.p);
 
   float tcar = 1.0f;  // transmittance after the last counted entry
   float pcar = 0.0f;  // running prefix sum of gw * w
   for (int base = 0; base < count; base += chunk)
     gs::bwd_chunk(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, &s_base,
-                  px, py, gp, &tcar, &pcar, grad, grad_cap, cursor);
+                  q, gp, &tcar, &pcar, grad, grad_cap, cursor);
 }
 
 }  // namespace
@@ -97,7 +104,7 @@ extern "C" int gs_rasterize_bwd(const void* tile_starts, const void* counts,
   cudaError_t err = cudaMemsetAsync(meta, 0, 3 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
-    const size_t smem = (size_t)(gs::kStageRows + gs::kGradRows) * chunk * sizeof(float);
+    const size_t smem = gs::bwd_smem_bytes(chunk);
     err = cudaFuncSetAttribute(rasterize_bwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

@@ -24,9 +24,10 @@
 // can never fire, because the carried T never falls to 1e-4 (see
 // rasterize_fwd_q.cu); every chunk's columns are appended, as there.
 //
-// Bound on the H100: operations, as rasterize_bwd.cu (~23 float32
-// operations per (pixel, entry) pair evaluated, ~53 more per pair that
-// counts and passes the gate).
+// Bound on the H100: as rasterize_bwd.cu (bytes at the bench scenes'
+// density), plus the queue's cum and one wtile entry per work item. The
+// per-chunk body, with its warp cull and transposed warp reduction, is
+// rasterize_bwd.cu's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,9 +60,8 @@ __global__ void rasterize_bwd_q_kernel(const int* __restrict__ wtile,
     const int w0 = cum[t];
     const int w1 = min(min(cum[t + 1], nw), w_cap);  // wtile holds w_cap items
     if (w0 >= w1) continue;  // an empty tile: not in the queue
-    float px, py;
-    gs::pixel_center(t, ntx, ts, threadIdx.x, &px, &py);
-    const gs::BwdPixel gp = gs::bwd_pixel(gout, fout, t);
+    const gs::Pixel q = gs::tile_pixel(t, ntx, ts);
+    const gs::BwdPixel gp = gs::bwd_pixel(gout, fout, t, q.p);
     float tcar = 1.0f;  // transmittance after the last counted entry
     float pcar = 0.0f;  // running prefix sum of gw * w
     for (int w = w0; w < w1; ++w) {
@@ -69,8 +69,8 @@ __global__ void rasterize_bwd_q_kernel(const int* __restrict__ wtile,
       const int ci = w - cum[tw];
       const int base = ci * chunk;
       gs::bwd_chunk(soa, soa_cols, (int64_t)tile_starts[tw] + base,
-                    min(chunk, counts[tw] - base), chunk, sh, &s_base, px, py, gp, &tcar,
-                    &pcar, grad, grad_cap, cursor);
+                    min(chunk, counts[tw] - base), chunk, sh, &s_base, q, gp, &tcar, &pcar,
+                    grad, grad_cap, cursor);
     }
   }
 }
@@ -95,7 +95,7 @@ extern "C" int gs_rasterize_bwd_q(const void* wtile, const void* cum, const void
   if ((err = cudaMemsetAsync(next_tile, 0, sizeof(int), s)) != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
     const int threads = ts * ts;
-    const size_t smem = (size_t)(gs::kStageRows + gs::kGradRows) * chunk * sizeof(float);
+    const size_t smem = gs::bwd_smem_bytes(chunk);
     if ((err = cudaFuncSetAttribute(rasterize_bwd_q_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)smem)) != cudaSuccess)

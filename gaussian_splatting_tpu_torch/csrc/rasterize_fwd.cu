@@ -27,11 +27,18 @@
 // per-chunk body lives in raster_tiles.cuh, shared with the queue kernel
 // (rasterize_fwd_q.cu), whose output is this kernel's bit for bit.
 //
-// Bound on the H100: operations, ~30 float32 operations (one expf) per
-// (pixel, entry) pair evaluated, against ~40 bytes of SoA per entry shared
-// by the block's 256 pixels. Design: each chunk is staged once in shared
-// memory with coalesced row loads (rows 0-9 only), then every thread reads
-// it by broadcast; a thread leaves the chunk at its first failing entry.
+// Bound on the H100: bytes at the bench scenes' density: ~40 bytes of SoA
+// read once per entry and the 32-byte output per pixel. The ~32 float32
+// operations (one expf) per (pixel, entry) pair are needed only for the
+// pairs with alpha != 0, about one in eight there, and take less
+// (chip_smoke.py counts both; without the cull every pair would need them,
+// an operations bound). Design (raster_tiles.cuh): each chunk
+// is staged once in shared memory with coalesced row loads (rows 0-9 and
+// each entry's cull threshold); each warp covers an 8x4 pixel block and
+// skips, by an exact ellipse-rectangle test and one ballot per 32 entries,
+// the entries that contribute to none of its pixels, which leaves the
+// output unchanged bit for bit; a thread leaves the chunk at its first
+// failing entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,19 +53,18 @@ __global__ void rasterize_fwd_kernel(const int* __restrict__ tile_starts,
                                      int64_t soa_cols,
                                      float* __restrict__ out,
                                      int ts, int ntx, int chunk) {
-  extern __shared__ float sh[];  // rows 0..9 of one chunk: sh[r * chunk + k]
+  extern __shared__ float sh[];  // the staged rows of one chunk (raster_tiles.cuh)
   const int t = blockIdx.x;
   const int64_t start = tile_starts[t];
   const int count = counts[t];
-  float px, py;
-  gs::pixel_center(t, ntx, ts, threadIdx.x, &px, &py);
+  const gs::Pixel q = gs::tile_pixel(t, ntx, ts);
 
   float tcar = 1.0f;
   gs::FwdAcc acc;
   for (int base = 0; base < count; base += chunk)
-    gs::fwd_chunk(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, px, py,
-                  &tcar, &acc);
-  gs::fwd_store(out, t, acc);
+    gs::fwd_chunk(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, q, &tcar,
+                  &acc);
+  gs::fwd_store(out, t, q.p, acc);
 }
 
 }  // namespace
@@ -70,7 +76,10 @@ extern "C" int gs_rasterize_fwd(const void* tile_starts, const void* counts,
                                 int n_tiles, int ts, int ntx, int chunk,
                                 void* stream) {
   if (n_tiles == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)10 * chunk * sizeof(float);
+  const size_t smem = gs::fwd_smem_bytes(chunk);
+  cudaError_t err = cudaFuncSetAttribute(rasterize_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   rasterize_fwd_kernel<<<n_tiles, ts * ts, smem, (cudaStream_t)stream>>>(
       (const int*)tile_starts, (const int*)counts, (const float*)soa, soa_cols,
       (float*)out, ts, ntx, chunk);

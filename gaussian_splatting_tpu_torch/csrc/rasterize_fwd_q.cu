@@ -31,9 +31,9 @@
 // and an entry counts only while tcar * prod stays above 1e-4, so tcar never
 // falls to 1e-4 (ROADMAP queue 3, "the tile loop never exits early").
 //
-// Bound on the H100: operations, as rasterize_fwd.cu (~32 float32
-// operations per (pixel, entry) pair evaluated); the queue adds two int
-// loads per chunk and one atomic per tile.
+// Bound on the H100: as rasterize_fwd.cu (bytes at the bench scenes'
+// density); the queue adds two int loads per chunk and one atomic per tile.
+// The per-chunk body, with its warp cull, is rasterize_fwd.cu's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,7 +50,7 @@ __global__ void rasterize_fwd_q_kernel(const int* __restrict__ wtile,
                                        const float* __restrict__ soa, int64_t soa_cols,
                                        float* __restrict__ out, int* __restrict__ next_tile,
                                        int n_tiles, int ts, int ntx, int chunk) {
-  extern __shared__ float sh[];  // rows 0..9 of one chunk: sh[r * chunk + k]
+  extern __shared__ float sh[];  // the staged rows of one chunk (raster_tiles.cuh)
   __shared__ int s_tile;
   const int nw = *n_work;
   for (;;) {
@@ -61,12 +61,11 @@ __global__ void rasterize_fwd_q_kernel(const int* __restrict__ wtile,
     if (t >= n_tiles) break;
     const int w0 = cum[t];
     const int w1 = min(min(cum[t + 1], nw), w_cap);  // wtile holds w_cap items
+    const gs::Pixel q = gs::tile_pixel(t, ntx, ts);
     if (w0 >= w1) {  // an empty tile: not in the queue, its block zero
-      gs::fwd_store(out, t, gs::FwdAcc{});
+      gs::fwd_store(out, t, q.p, gs::FwdAcc{});
       continue;
     }
-    float px, py;
-    gs::pixel_center(t, ntx, ts, threadIdx.x, &px, &py);
     float tcar = 1.0f;
     gs::FwdAcc acc;
     for (int w = w0; w < w1; ++w) {
@@ -74,9 +73,9 @@ __global__ void rasterize_fwd_q_kernel(const int* __restrict__ wtile,
       const int ci = w - cum[tw];
       const int base = ci * chunk;
       gs::fwd_chunk(soa, soa_cols, (int64_t)tile_starts[tw] + base,
-                    min(chunk, counts[tw] - base), chunk, sh, px, py, &tcar, &acc);
+                    min(chunk, counts[tw] - base), chunk, sh, q, &tcar, &acc);
     }
-    gs::fwd_store(out, t, acc);
+    gs::fwd_store(out, t, q.p, acc);
   }
 }
 
@@ -96,7 +95,11 @@ extern "C" int gs_rasterize_fwd_q(const void* wtile, const void* cum, const void
   cudaError_t err = cudaMemsetAsync(next_tile, 0, sizeof(int), s);
   if (err != cudaSuccess || n_tiles == 0) return (int)err;
   const int threads = ts * ts;
-  const size_t smem = (size_t)10 * chunk * sizeof(float);
+  const size_t smem = gs::fwd_smem_bytes(chunk);
+  if ((err = cudaFuncSetAttribute(rasterize_fwd_q_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
+    return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=

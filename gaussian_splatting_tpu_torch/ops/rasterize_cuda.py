@@ -19,6 +19,11 @@ CUDA kernels 5 ``pack_rows`` and 4 ``segsum``).
 tile's work items, with the loop kernels' per-chunk bodies; the forward is
 the loop forward's bit for bit. ``sort_buckets`` bins through the bucket
 partition (``tiling._bucket_binned``, CUDA kernel 8).
+
+Inside a tile, each warp of the four sweep kernels covers an 8x4 pixel block
+and skips the entries that reach none of its pixels, by an exact
+ellipse-rectangle test that leaves the output unchanged
+(``csrc/raster_tiles.cuh``); ``warp_cull_plain`` mirrors the test.
 """
 
 from __future__ import annotations
@@ -44,6 +49,11 @@ T_EARLY_STOP = 1e-4
 # Tiles per step of the plain forward: bounds its (tiles, 256, chunk)
 # temporaries to ~270 MB each at chunk 256.
 _PLAIN_TILE_BATCH = 1024
+# The warp cull's slack against float32 rounding, relative to the largest
+# magnitude of the quadratic form's terms (csrc/raster_tiles.cuh), and the
+# entries per step of its plain mirror's (warps, 32, entries) temporaries.
+_CULL_SLACK = 1e-5
+_CULL_BATCH = 1 << 15
 
 
 def _cumprod_sequential(x: torch.Tensor) -> torch.Tensor:
@@ -130,7 +140,8 @@ def _check_fwd_args(tile_starts, counts, soa, tile_size, chunk):
     if tile_size * tile_size not in (64, 256, 1024):
         raise ValueError("tile_size must be 8, 16 or 32")
     if not 1 <= chunk <= 1024:
-        raise ValueError("chunk must be in [1, 1024] (shared memory holds 10 rows of it)")
+        raise ValueError("chunk must be in [1, 1024] (the backward keeps 22 rows of it in "
+                         "shared memory: 12 staged, 10 of sums)")
 
 
 def fwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor,
@@ -256,6 +267,94 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
     meta = torch.tensor([kept, n_chunks_total * chunk - kept], dtype=torch.int32,
                         device=dev)
     return grad, meta, active
+
+
+def warp_pixel_map(tile_size: int) -> torch.Tensor:
+    """(n_warps, 32) int64: the tile pixel (row-major) of each lane of each
+    warp in the raster kernels (``csrc/raster_tiles.cuh::tile_pixel``).
+    Warp w covers the 8x4 block (w % (ts / 8), w // (ts / 8)) of its tile,
+    lane l the block's pixel (l % 8, l // 8)."""
+    ts = tile_size
+    w = torch.arange(ts * ts // 32)[:, None]
+    lane = torch.arange(32)[None, :]
+    return ((w // (ts // 8)) * 4 + lane // 8) * ts + (w % (ts // 8)) * 8 + lane % 8
+
+
+def _cull_gate(e: torch.Tensor) -> torch.Tensor:
+    """``raster_tiles.cuh::cull_gate`` of entries ``e`` (10, E): the gate
+    threshold Q = 2 (ln(255 op) + 1e-3), or +inf where the entry is never
+    skipped (op < 1/255, a conic that is not positive definite, a value
+    that is not finite)."""
+    ca, cb, cc, op = e[2], e[3], e[4], e[5]
+    det = ca * cc - cb * cb
+    ok = torch.isfinite(e).all(0) & (op >= ALPHA_SKIP) & (ca > 0) & (cc > 0) & (det > 0)
+    return torch.where(ok, 2.0 * (torch.log(255.0 * op) + 1e-3), float("inf"))
+
+
+def _quad(ca, cb, cc, qx, qy):
+    return ca * qx * qx + 2.0 * cb * qx * qy + cc * qy * qy
+
+
+def _warp_may_hit(xl, xh, yl, yh, mx, my, ca, cb, cc, gate):
+    """``raster_tiles.cuh::warp_may_hit``, the same float32 operations in the
+    same order: False only if the minimum of the quadratic form over the
+    rectangle of pixel centres [xl, xh] x [yl, yh] exceeds the gate by more
+    than the rounding slack."""
+    dxl, dxh, dyl, dyh = xl - mx, xh - mx, yl - my, yh - my
+    inside = (dxl <= 0) & (dxh >= 0) & (dyl <= 0) & (dyh >= 0)
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    q_min = torch.minimum(
+        torch.minimum(_quad(ca, cb, cc, dxl, clip(-cb * dxl / cc, dyl, dyh)),
+                      _quad(ca, cb, cc, dxh, clip(-cb * dxh / cc, dyl, dyh))),
+        torch.minimum(_quad(ca, cb, cc, clip(-cb * dyl / ca, dxl, dxh), dyl),
+                      _quad(ca, cb, cc, clip(-cb * dyh / ca, dxl, dxh), dyh)))
+    scale = _quad(ca, cb.abs(), cc, torch.maximum(dxl.abs(), dxh.abs()),
+                  torch.maximum(dyl.abs(), dyh.abs()))
+    return inside | ~(q_min > gate + _CULL_SLACK * scale)
+
+
+def warp_cull_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor,
+                    tile_size: int, ntx: int):
+    """Plain mirror of the raster kernels' warp cull. Returns ``(keep,
+    touched)``, both (n_warps, E) bool over the E = counts.sum() entries in
+    tile order (entry k of tile t at ``excl_prefix(counts)[t] + k``):
+    ``keep`` is the kernels' ballot bit (False: warp w of the entry's tile
+    skips it), ``touched`` whether the plain forward's ``contrib`` (sigma >=
+    0 and op e^-sigma >= 1/255) holds at any pixel of warp w's 8x4 block.
+    The cull is exact when ``keep`` holds wherever ``touched`` does."""
+    ts = tile_size
+    dev = soa.device
+    T = counts.shape[0]
+    cnt = counts.long()
+    tile = torch.repeat_interleave(torch.arange(T, device=dev), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    col = tile_starts[tile].long() + torch.arange(tile.shape[0], device=dev) - first[tile]
+    e = soa[:10, col]                                                    # (10, E)
+    gate = _cull_gate(e)
+    pix = warp_pixel_map(ts).to(dev)                                     # (W, 32)
+    bx = (pix[:, 0] % ts)[:, None]                                       # (W, 1)
+    by = (pix[:, 0] // ts)[:, None]
+    x0 = ((tile % ntx) * ts)[None, :] + bx                               # (W, E)
+    y0 = ((tile // ntx) * ts)[None, :] + by
+    mx, my, ca, cb, cc, op = e[:6]
+    keep = _warp_may_hit(x0.float() + 0.5, (x0 + 7).float() + 0.5, y0.float() + 0.5,
+                         (y0 + 3).float() + 0.5, mx, my, ca, cb, cc, gate)
+    touched = torch.zeros_like(keep)
+    lx = (pix % ts - bx)[:, :, None]                                     # (W, 32, 1)
+    ly = (pix // ts - by)[:, :, None]
+    for s in range(0, tile.shape[0], _CULL_BATCH):
+        sl = slice(s, s + _CULL_BATCH)
+        px = (x0[:, None, sl] + lx).float() + 0.5                        # (W, 32, B)
+        py = (y0[:, None, sl] + ly).float() + 0.5
+        dx = px - mx[sl]
+        dy = py - my[sl]
+        sigma = 0.5 * (ca[sl] * dx * dx + cc[sl] * dy * dy) + cb[sl] * dx * dy
+        araw = op[sl] * torch.exp(-sigma)
+        touched[:, sl] = ((sigma >= 0.0) & (araw >= ALPHA_SKIP)).any(1)
+    return keep, touched
 
 
 def _check_bwd_args(tile_starts, counts, soa, gout, fout, tile_size, chunk, grad_cap):
