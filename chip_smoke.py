@@ -20,8 +20,8 @@ Phases (any failure exits nonzero and prints no result):
    the backward:
    ``bwd_tiles`` + the kernel reduce against ``bwd_tiles_plain`` + the
    plain reduce under a seeded cotangent, and ``pack_rows`` (10 and 11
-   rows) and ``segsum`` against their plain versions on the kernel's
-   gradient stream; then the queue path: the
+   rows) and ``segsum`` (``n_rows`` 16 and 10) against their plain versions
+   on the kernel's gradient stream; then the queue path: the
    queue forward equal to the loop forward bit for bit, the queue backward
    + reduce against the plain versions, and the ``bench.py`` forward +
    backward workload with ``queue=True`` (the queue kernels must launch,
@@ -46,12 +46,12 @@ Phases (any failure exits nonzero and prints no result):
    features_dc and logit opacities, towards the scene's own renders; the
    loss must descend, everything stay finite, no gradient be dropped, and
    every kernel of the path launch during the steps;
-5b. the bucket path at training view 0: ``pack_rows`` building the
-   partition's input against its plain version, the partition kernel
-   against its plain version on that input (both exact), the bucket
-   binning's n_isect + n_bucket_dropped equal to the dense n_isect and,
-   with no bucket drop, its forward equal to the dense one bit for bit and
-   its backward + reduce against the dense plain sums and meta;
+5b. the bucket path at training view 0: the fused partition kernel
+   (``bucket_partition``) against its plain version on the view's slots
+   (key, gid, counts and drops exact), the bucket binning's n_isect +
+   n_bucket_dropped equal to the dense n_isect and, with no bucket drop,
+   its forward equal to the dense one bit for bit and its backward +
+   reduce against the dense plain sums and meta;
    then 4 steps of ``make_train_step(TrainingConfig(sort_buckets=8))``
    from the same noisy state: the loss must descend and the partition
    launch once a view in every step;
@@ -60,7 +60,9 @@ Phases (any failure exits nonzero and prints no result):
    the main paths' shapes: render,
    training step (dense and bucket), one view's forward + backward, the
    ``bench.py`` forward + backward workload (loop and queue), binning
-   (dense and bucket), and each kernel against its bound, its plain
+   (dense and bucket, with the peak memory of one call of each; the
+   removed bucket path's key passes timed on tensors of their shapes),
+   and each kernel against its bound, its plain
    version and, where there is one, a PyTorch library call (the two pack
    kernels also against an ``index_select`` moving the same bytes and
    against writing their output's zeros, in each of their uses); the
@@ -175,6 +177,27 @@ def cuda_ms(fn, reps=7, warmup=2):
     return statistics.median(times)
 
 
+def kernel_ms(fn, name, reps=10):
+    """Median device time (ms) of the kernels whose name holds ``name``
+    among those ``fn()`` launches, from ``torch.profiler`` (CUPTI): the
+    kernel alone, without the host time of its wrapper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if not times:
+        fail(f"the profiler saw no kernel named {name}")
+    return statistics.median(times) / 1e3
+
+
 def launch_counters():
     """The launch-count owners of the eight kernels, by kernel name."""
     from gaussian_splatting_tpu_torch.ops import partition, rasterize_cuda, segsum, tiling
@@ -184,7 +207,7 @@ def launch_counters():
             "segsum": segsum.segment_sum_sorted,
             "rasterize_fwd_q": rasterize_cuda.fwd_tiles_q,
             "rasterize_bwd_q": rasterize_cuda.bwd_tiles_q,
-            "partition": partition.partition_soa}
+            "partition": partition.bucket_partition}
 
 
 def reset_launches():
@@ -479,6 +502,7 @@ def compare_backward(b, fwd_out, n, tag, seed=0):
 
     key, perm = sorted_gid_key(k_grad, n, k_meta[0], 0, k_grad.shape[1])
     nv = k_meta[:1].contiguous()
+    stacked = {}
     for n_rows in (10, 11):  # the step's reduce (no depth payload) and with depth
         k_st = pack_rows(k_grad, perm, key, nv, 0, n_rows, float(n))
         p_st = pack_rows_plain(k_grad, perm, key, nv, 0, n_rows, float(n))
@@ -487,23 +511,36 @@ def compare_backward(b, fwd_out, n, tag, seed=0):
         if not torch.equal(k_st, p_st):
             fail(f"[{tag}] pack_rows kernel ({n_rows} rows) differs from pack_rows_plain "
                  f"({pack_rows_err})")
+        stacked[n_rows] = k_st
         del p_st
-    k_seg = segment_sum_sorted(k_st, n)
-    p_seg = segment_sum_sorted_plain(k_st, n)
-    torch.cuda.synchronize()
-    seg_d = (k_seg - p_seg).abs()[1:]
-    seg_scale = p_seg.abs()[1:].amax(1, keepdim=True) + 1e-12
-    segsum_err = float(seg_d.max())
+    # segsum reading all 16 rows of the 11-row buffer (the JAX contract) and
+    # only the 10 rows of the step's buffer.
+    segsum_err = 0.0
+    ids = torch.unique_consecutive(stacked[10][0])
+    log(f"[{tag}] gradient stream: {int((ids < n).sum())} of {n} gaussians have entries")
+    del ids
+    for n_rows, st in ((16, stacked[11]), (10, stacked[10])):
+        k_seg = segment_sum_sorted(st, n, n_rows)
+        p_seg = segment_sum_sorted_plain(st, n, n_rows)
+        torch.cuda.synchronize()
+        seg_d = (k_seg - p_seg).abs()[1:]
+        seg_scale = p_seg.abs()[1:].amax(1, keepdim=True) + 1e-12
+        err = float(seg_d.max())
+        segsum_err = max(segsum_err, err)
+        log(f"[{tag}] segsum kernel (n_rows {n_rows}) vs plain: max |diff| {err:.3e} (rows "
+            f"1-15, gate {SEGSUM_ATOL_FRAC} of each row's largest value)")
+        if not (bool((seg_d <= SEGSUM_ATOL_FRAC * seg_scale).all())
+                and bool((k_seg[n_rows:] == 0).all()) and bool(torch.isfinite(k_seg).all())):
+            fail(f"[{tag}] segsum kernel (n_rows {n_rows}) disagrees with "
+                 f"segment_sum_sorted_plain")
+        del k_seg, p_seg, seg_d
     log(f"[{tag}] pack_rows kernel == plain, 10 and 11 rows: exact ({k_st.shape[1]} "
-        f"columns); segsum "
-        f"kernel vs plain: max |diff| {segsum_err:.3e} (rows 1-15, gate "
-        f"{SEGSUM_ATOL_FRAC} of each row's largest value)")
-    if not bool((seg_d <= SEGSUM_ATOL_FRAC * seg_scale).all()):
-        fail(f"[{tag}] segsum kernel disagrees with segment_sum_sorted_plain")
+        f"columns)")
+    del stacked[11]
     return {"bwd_err": max(s["max_err"] for s in stats.values()),
             "p_sums": p_sums, "p_meta": p_meta, "pack_rows_err": pack_rows_err,
             "segsum_err": segsum_err, "active": int(active), "gout": gout,
-            "grad": k_grad, "meta": k_meta, "key": key, "perm": perm, "stacked": k_st,
+            "grad": k_grad, "meta": k_meta, "key": key, "perm": perm, "stacked": stacked[10],
             "gcap": gcap}
 
 
@@ -561,60 +598,46 @@ def compare_queue(b, fwd_out, plain_out, bwd, n, tag):
 
 
 def compare_partition(sargs, b, fwd_out, bwd, tag):
-    """Phase 5b, checks: the partition kernel against its plain version on
-    the bucket binning's own input at these screen-space inputs (out,
-    counts and drops exact); the bucket binning's kept + dropped equal to
-    the dense binning ``b``'s n_isect and, with no drop, on the bucket
-    (gapped) layout: the forward equal to the dense ``fwd_out`` bit for
-    bit, and the backward kernel + kernel reduce under ``compare_backward``'s
-    cotangent against its plain sums and meta (``bwd``) under the
-    backward's gates. The partition's input, ``bucket_partition_input``'s
-    ``pack_rows``, is held against ``pack_rows_plain`` first (exact).
-    Returns the partition's input and the arguments it was gathered from,
-    quantum, output, error, drop count and the bucket binning's gid."""
+    """Phase 5b, checks: the fused partition kernel (``bucket_partition``)
+    against its plain version on the dense slots' tiles and the depths at
+    these screen-space inputs (key, gid, counts and drops exact); the bucket
+    binning's kept + dropped equal to the dense binning ``b``'s n_isect
+    and, with no drop, on the bucket (gapped) layout: the forward equal to
+    the dense ``fwd_out`` bit for bit, and the backward kernel + kernel
+    reduce under ``compare_backward``'s cotangent against its plain sums
+    and meta (``bwd``) under the backward's gates. Returns the partition's
+    inputs, quantum, outputs, drop count and the bucket binning's gid."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.partition import (
-        partition_soa, partition_soa_plain, quantum_for)
+        bucket_partition, bucket_partition_plain, quantum_for)
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import bwd_tiles, fwd_tiles
     from gaussian_splatting_tpu_torch.ops.tiling import (
-        BUCKET_C, bucket_input_args, bucket_partition_input, isect_and_sort, pack_rows_plain,
-        quantity_records, reduce_padded_grads, slot_tiles)
+        BUCKET_C, isect_and_sort, reduce_padded_grads, slot_tiles)
 
-    means2d, conics, _, opac, _, radii = sargs
+    means2d, conics, _, opac, depths, radii = sargs
     tile_key, _, T = slot_tiles(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE, MAX_T)
-    records = quantity_records(*sargs[:5])
-    packed = bucket_partition_input(tile_key, records, T)
-    bargs = bucket_input_args(tile_key, records, T)
-    del tile_key, records
-    same = torch.equal(packed, pack_rows_plain(*bargs))
-    log(f"[{tag}] pack_rows kernel, bucket partition input (16, {packed.shape[1]}), 12 rows "
-        f"gathered from (16, {bargs[0].shape[1]}): equal to plain: {same}")
-    if not same:
-        fail(f"[{tag}] pack_rows kernel (bucket input) differs from pack_rows_plain")
     q = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
-    k_out = partition_soa(packed, BUCKETS, q, sentinel=float(T), C=BUCKET_C,
-                          drop_key_above=float(T))
-    nv = torch.full((1,), packed.shape[1], dtype=torch.int32, device=packed.device)
-    p_out = partition_soa_plain(packed, BUCKETS, q, key_row=0, sentinels=(float(T),) * BUCKETS,
-                                C=BUCKET_C, bucket_shift=0, n_valid=nv,
-                                drop_key_above=float(T))
+    k_out = bucket_partition(tile_key, depths, T, BUCKETS, q, C=BUCKET_C)
+    p_out = bucket_partition_plain(tile_key, depths, T, BUCKETS, q, C=BUCKET_C)
     torch.cuda.synchronize()
-    err = max(float((a.double() - c.double()).abs().max()) for a, c in zip(k_out, p_out))
     exact = all(torch.equal(a, c) for a, c in zip(k_out, p_out))
+    diff = [int((a != c).sum()) for a, c in zip(k_out, p_out)]
+    err = max(float((a.double() - c.double()).abs().max()) for a, c in zip(k_out, p_out))
     del p_out
-    log(f"[{tag}] partition kernel, input (16, {packed.shape[1]}), B {BUCKETS}, quantum {q}, "
-        f"cap {k_out[0].shape[2]}: equal to plain: {exact}; counts {k_out[1].tolist()}, "
-        f"drops {k_out[2].tolist()}")
+    log(f"[{tag}] bucket partition kernel, {tile_key.shape[0]} slots, B {BUCKETS}, quantum "
+        f"{q}, (B, cap) = {tuple(k_out[0].shape)}: key, gid, counts, drops equal to plain: "
+        f"{exact} (entries differing {diff}); counts {k_out[2].tolist()}, drops "
+        f"{k_out[3].tolist()}")
     if not exact:
-        fail(f"[{tag}] partition kernel differs from partition_soa_plain ({err})")
+        fail(f"[{tag}] bucket partition kernel differs from bucket_partition_plain")
 
     bb = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=BUCKETS,
                         bucket_headroom=BUCKET_HEADROOM)
     n_b, n_drop, n_dense = int(bb.n_isect), int(bb.n_bucket_dropped), int(b.n_isect)
     log(f"[{tag}] bucket binning: n_isect {n_b} + n_bucket_dropped {n_drop} = {n_b + n_drop} "
         f"(dense n_isect {n_dense}); tile_starts[T] {int(bb.tile_starts[-1])}")
-    if n_b + n_drop != n_dense or int(k_out[2].sum()) != n_drop:
+    if n_b + n_drop != n_dense or int(k_out[3].sum()) != n_drop:
         fail(f"[{tag}] the bucket binning lost or gained intersections")
     if n_drop == 0:
         ntx = -(-WIDTH // TILE)
@@ -642,10 +665,10 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
         if km != pm or not ok or not finite:
             fail(f"[{tag}] the backward on the bucket layout disagrees with the dense plain sums")
         del k_sums
-    gid_b = bb.sorted_soa[11, :k_out[0].shape[1] * k_out[0].shape[2]].to(torch.int32)
+    gid_b = bb.sorted_soa[11, :k_out[0].numel()].to(torch.int32)
     del bb
-    return {"packed": packed, "bargs": bargs, "q": q, "T": T, "out": k_out, "err": err,
-            "n_drop": n_drop, "gid": gid_b}
+    return {"tile_key": tile_key, "depths": depths, "q": q, "T": T, "out": k_out,
+            "err": err, "n_drop": n_drop, "gid": gid_b}
 
 
 def bucket_train_phase(dev, scene, views, images):
@@ -703,6 +726,27 @@ def bucket_train_phase(dev, scene, views, images):
     if min(launches[k] for k in path) < 1:
         fail(f"[bucket] a kernel of the bucket path never launched: {launches}")
     return step, state, batch, step_ms, launches
+
+
+def binning_peak_gib(sargs):
+    """Peak device memory (GiB, ``max_memory_allocated``) of one dense and
+    one bucket ``isect_and_sort`` at screen-space inputs ``sargs``, above
+    what was allocated before the call."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.tiling import isect_and_sort
+
+    peaks = {}
+    for name, kw in (("dense", {}), ("bucket", {"sort_buckets": BUCKETS,
+                                                "bucket_headroom": BUCKET_HEADROOM})):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, **kw)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del out
+    return peaks
 
 
 def trace(fn, tag):
@@ -806,6 +850,9 @@ def bench_phase(dev):
              for B in (BUCKETS, 2 * BUCKETS)}
     log(f"[bench] bucket binning at headroom {BUCKET_HEADROOM}, n_bucket_dropped by "
         f"sort_buckets: {drops}")
+    peaks = binning_peak_gib(args)
+    log(f"[bench] peak device memory of one binning above its inputs: dense "
+        f"{peaks['dense']:.3f} GiB, bucket (sort_buckets {BUCKETS}) {peaks['bucket']:.3f} GiB")
     torch.cuda.empty_cache()
 
     # The bench.py workload (bench.py:149-168): forward + backward of
@@ -1145,7 +1192,8 @@ def run(dev):
     from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
     from gaussian_splatting_tpu_torch.models.gaussians import (
         PARAM_KEYS, GaussianParams, state_from_numpy)
-    from gaussian_splatting_tpu_torch.ops.partition import partition_soa, partition_soa_plain
+    from gaussian_splatting_tpu_torch.ops.partition import (
+        bucket_partition, bucket_partition_plain)
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
         bwd_tiles, bwd_tiles_plain, bwd_tiles_q, cdiv, check_queue, fwd_tiles,
         fwd_tiles_plain, fwd_tiles_q)
@@ -1266,6 +1314,7 @@ def run(dev):
     binning_bucket_ms = cuda_ms(lambda: isect_and_sort(
         *sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=BUCKETS,
         bucket_headroom=BUCKET_HEADROOM), reps=5)
+    peaks = binning_peak_gib(sargs)
     # pack_soa: the dense binning's call (n_live), the full gather of the
     # same columns and of the bucket binning's B * cap columns. Yardsticks:
     # index_select of the (10, N) row table (ten rows written of sixteen),
@@ -1309,14 +1358,21 @@ def run(dev):
                                            *bwd_args[2:]))
     bwd_q_plain_ms = cuda_ms(lambda: (check_queue(*queue, b.counts, CHUNK),
                                       bwd_tiles_plain(*bwd_args)), reps=3, warmup=1)
-    # The partition at the bucket binning's own input.
-    packed, q, Tb, part_err = bk["packed"], bk["q"], float(bk["T"]), bk["err"]
-    part_ms = cuda_ms(lambda: partition_soa(packed, BUCKETS, q, sentinel=Tb, C=BUCKET_C,
-                                            drop_key_above=Tb))
-    part_nv = torch.full((1,), packed.shape[1], dtype=torch.int32, device=dev)
-    part_plain_ms = cuda_ms(lambda: partition_soa_plain(
-        packed, BUCKETS, q, key_row=0, sentinels=(Tb,) * BUCKETS, C=BUCKET_C, bucket_shift=0,
-        n_valid=part_nv, drop_key_above=Tb), reps=5)
+    # The partition at the bucket binning's own inputs.
+    tile_key, depths_v, q, Tb, part_err = (bk[k] for k in ("tile_key", "depths", "q", "T",
+                                                           "err"))
+    part_ms = cuda_ms(lambda: bucket_partition(tile_key, depths_v, Tb, BUCKETS, q, C=BUCKET_C))
+    part_plain_ms = cuda_ms(lambda: bucket_partition_plain(tile_key, depths_v, Tb, BUCKETS, q,
+                                                           C=BUCKET_C), reps=5)
+    # The key passes the fused partition removed: the int64 key built from
+    # the tile and depth rows of the old (16, B, cap) output, timed on two
+    # (B, cap) float32 rows of that shape.
+    from gaussian_splatting_tpu_torch.ops.tiling import _float_order_bits
+
+    rows01 = torch.rand((2,) + tuple(bk["out"][0].shape), device=dev)
+    key_pass_ms = cuda_ms(lambda: (rows01[0].to(torch.int64) << 32)
+                          | _float_order_bits(rows01[1]))
+    del rows01
     grad, meta, key, perm, stacked = (bw[k] for k in ("grad", "meta", "key", "perm", "stacked"))
     n_written = int(meta[0])
     nv = meta[:1].contiguous()
@@ -1329,13 +1385,14 @@ def run(dev):
     prow_lib_ms = cuda_ms(lambda: torch.index_select(grad[:10], 1, perm))
     prow_lib16_ms = cuda_ms(lambda: torch.index_select(grad, 1, perm))
     prow_zeros_ms = cuda_ms(lambda: torch.zeros_like(stacked))
-    # pack_rows in the bucket binning: the partition's input, 12 rows from
-    # the (16, N) table through slot -> gaussian.
-    bargs = bk["bargs"]
-    prow_bucket_ms = cuda_ms(lambda: pack_rows(*bargs, perm_bound=N))
-    prow_bucket_lib_ms = cuda_ms(lambda: torch.index_select(bargs[0][:12], 1, bargs[1]))
-    seg_ms = cuda_ms(lambda: segment_sum_sorted(stacked, N))
-    seg_plain_ms = cuda_ms(lambda: segment_sum_sorted_plain(stacked, N), reps=5)
+    # segsum as the step calls it: the 10-row buffer, n_rows 10. Beside it,
+    # a buffer with no entry at all (a slice past n_written): all zeros out.
+    seg_ms = cuda_ms(lambda: segment_sum_sorted(stacked, N, 10))
+    seg_plain_ms = cuda_ms(lambda: segment_sum_sorted_plain(stacked, N, 10), reps=5)
+    empty = torch.zeros_like(stacked)
+    empty[0] = float(N)
+    seg_empty_ms = cuda_ms(lambda: segment_sum_sorted(empty, N, 10))
+    del empty
     # Library yardsticks: index_add_ on the kernel's (16, M) layout and on
     # the (M, 16) one (a contiguous transposed copy made beforehand); the
     # faster one is reported.
@@ -1387,24 +1444,19 @@ def run(dev):
     prow_out = stacked.shape[1]
     prow_bound = ((4 * perm.shape[0] + (8 + 4 * 9) * n_real + 64 * prow_out)
                   / HBM_BYTES_PER_S * 1e3)
-    # segsum: reads the id (4 B) of every column and the 15 payload rows
-    # (60 B) of the real entries; writes 64 B per gaussian.
-    seg_bound = (4 * stacked.shape[1] + 60 * n_real + 64 * N) / HBM_BYTES_PER_S * 1e3
-    # pack_rows, bucket input: reads the tile key (4 B) and the slot ->
-    # gaussian index (8 B) of every slot and rows 1-11 of the (16, N) table
-    # once (44 B a gaussian); writes 64 B per output column.
-    mbi = bargs[1].shape[0]
-    prow_bucket_bound = (12 * mbi + 44 * N + 64 * cdiv(mbi, 8192) * 8192) / HBM_BYTES_PER_S * 1e3
+    # segsum (n_rows 10): reads the id (4 B) and the 9 payload rows (36 B)
+    # of the real entries, the columns below the first sentinel; writes 64 B
+    # per gaussian.
+    seg_bound = ((4 + 36) * n_real + 64 * N) / HBM_BYTES_PER_S * 1e3
     # The queue kernels do the loop kernels' work and read the queue too:
     # cum (T + 1), n_work and one wtile entry per work item.
     queue_bytes_ms = (4 * (T + 2) + 4 * n_work) / HBM_BYTES_PER_S * 1e3
-    # partition: reads the key (4 B) of every input column and rows 1..14
-    # (56 B) of each kept one, the key already counted and row 15 computed;
-    # writes 64 B per output column, plus n_valid, the sentinels, counts
-    # and drops.
-    part_out, part_kept = bk["out"][0], int(bk["out"][1].sum())
-    part_cols = part_out.shape[1] * part_out.shape[2]
-    part_bound = ((4 * packed.shape[1] + 56 * part_kept + 64 * part_cols + 4 + 12 * BUCKETS)
+    # partition: reads the tile (4 B) of every slot and the depth (4 B) of
+    # each kept one; writes the key (8 B) and gid (4 B) of every output
+    # column, and the counts and drops.
+    part_kept = int(bk["out"][2].sum())
+    part_cols = bk["out"][0].numel()
+    part_bound = ((4 * tile_key.shape[0] + 4 * part_kept + 12 * part_cols + 8 * BUCKETS)
                   / HBM_BYTES_PER_S * 1e3)
 
     per_step = {k: v / (TRAIN_STEPS) for k, v in launches.items()}
@@ -1429,8 +1481,10 @@ def run(dev):
         f"anything: forward {fwd_needed_ops_ms:.4f} ms, backward {bwd_needed_ops_ms:.4f} ms; "
         f"bounds: forward {fwd_needed_ms:.4f} ms, backward {bwd_needed_ms:.4f} ms; warp cull "
         f"share at train view 0 {culled:.4f}; pack_rows {prow_bound:.4f} ms; segsum "
-        f"{seg_bound:.4f} ms ({n_real} real entries of {stacked.shape[1]} columns); launches per step {per_step}; render path launches "
-        f"{render_launches}")
+        f"{seg_bound:.4f} ms ({n_real} real entries of {stacked.shape[1]} columns); launches "
+        f"per step {per_step}; render path launches {render_launches}")
+    log(f"[time] segsum (n_rows 10) {seg_ms:.4f} ms, bound {seg_bound:.4f}; on a buffer with "
+        f"no entry {seg_empty_ms:.4f} ms")
     log(f"[time] library yardsticks: segsum index_add_ on (16, N+1) {seg_lib_cols_ms:.3f} ms, "
         f"on (N+1, 16) {seg_lib_rows_ms:.3f} ms; pack_rows index_select {prow_lib_ms:.3f} ms; "
         f"pack index_select {pack_lib_ms:.3f} ms")
@@ -1445,21 +1499,22 @@ def run(dev):
     log(f"[time] pack_rows, reduce (10 rows, {n_real} real of {perm.shape[0]} columns): "
         f"{prow_ms:.4f} ms, bound {prow_bound:.4f}; yardsticks: index_select of 10 rows "
         f"{prow_lib_ms:.4f} ms, of all 16 rows, the same bytes, {prow_lib16_ms:.4f} ms, zeros "
-        f"of the (16, {prow_out}) output {prow_zeros_ms:.4f} ms; bucket input (12 rows, {mbi} "
-        f"slots from (16, {N})): {prow_bucket_ms:.4f} ms, bound {prow_bucket_bound:.4f}, "
-        f"index_select of 12 rows {prow_bucket_lib_ms:.4f} ms")
+        f"of the (16, {prow_out}) output {prow_zeros_ms:.4f} ms")
     log(f"[time] queue path, train view 0 ({n_work} work items): queue forward {fwd_q_ms:.3f} "
         f"ms (loop {fwd_ms:.3f}), queue backward {bwd_q_ms:.3f} ms (loop {bwd_ms:.3f}); bench.py "
         f"fwd+bwd workload queue {bench['bench_fwd_bwd_queue_ms']:.3f} ms, loop "
         f"{bench['bench_fwd_bwd_ms']:.3f} ms; queue run launches {bench['queue_launches']}")
     log(f"[time] bucket path (sort_buckets {BUCKETS}): binning incl. partition "
-        f"{binning_bucket_ms:.3f} ms (dense {binning_ms:.3f}); partition {part_ms:.3f} ms "
-        f"(plain {part_plain_ms:.3f}, bound {part_bound:.4f}: {packed.shape[1]} input columns, "
-        f"{part_kept} kept, {part_cols} output columns); training step "
+        f"{binning_bucket_ms:.3f} ms (dense {binning_ms:.3f}); peak device memory of one "
+        f"binning above its inputs: bucket {peaks['bucket']:.3f} GiB, dense "
+        f"{peaks['dense']:.3f} GiB; fused partition {part_ms:.4f} ms (plain "
+        f"{part_plain_ms:.3f}, bound {part_bound:.4f}: {tile_key.shape[0]} slots, {part_kept} "
+        f"kept, {part_cols} output columns); the key passes it removed, on two (B, cap) rows, "
+        f"{key_pass_ms:.4f} ms; training step "
         f"{statistics.median(bstep_ms[1:]):.3f} ms (median of steps 1-{BUCKET_STEPS - 1}: "
         f"{[round(x, 3) for x in bstep_ms]}; dense {statistics.median(step_ms[1:]):.3f}); "
         f"launches per step {({k: v / BUCKET_STEPS for k, v in blaunches.items()})}")
-    del packed, part_out, bk
+    del bk
 
     trace(lambda: raster.render_single(state.params, views[0]), "one render")
     trace(lambda: step(tstate, batch), "one training step")
@@ -1471,12 +1526,34 @@ def run(dev):
                     rasterize_bwd_q=bench["queue_launches"]["rasterize_bwd_q"],
                     partition=blaunches["partition"])
 
+    # Each kernel's device time alone (profiler), beside the wrapper's time.
+    k_ms = {
+        "pack_soa": kernel_ms(lambda: pack_soa(records, gid, 2 * CHUNK, n_live), "pack_soa_kernel"),
+        "rasterize_fwd": kernel_ms(lambda: fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE,
+                                                     ntx, CHUNK), "rasterize_fwd_kernel"),
+        "rasterize_bwd": kernel_ms(lambda: bwd_tiles(*bwd_args), "rasterize_bwd_kernel"),
+        "pack_rows": kernel_ms(lambda: pack_rows(grad, perm, key, nv, 0, 10, float(N)),
+                               "pack_rows_kernel"),
+        "segsum": kernel_ms(lambda: segment_sum_sorted(stacked, N, 10), "segsum_kernel"),
+        "rasterize_fwd_q": kernel_ms(lambda: fwd_tiles_q(*queue[:2], b.tile_starts, b.counts,
+                                                         queue[2], b.sorted_soa, TILE, ntx, CHUNK),
+                                     "rasterize_fwd_q_kernel"),
+        "rasterize_bwd_q": kernel_ms(lambda: bwd_tiles_q(*queue[:2], b.tile_starts, b.counts,
+                                                         queue[2], *bwd_args[2:]),
+                                     "rasterize_bwd_q_kernel"),
+        "partition": kernel_ms(lambda: bucket_partition(tile_key, depths_v, Tb, BUCKETS, q,
+                                                        C=BUCKET_C), "bucket_partition_kernel"),
+    }
+    log(f"[time] kernels alone (torch.profiler device time, median of 10): "
+        f"{json.dumps({k: round(v, 4) for k, v in k_ms.items()})}")
+    del tile_key, depths_v
+
     def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"gaussian_splatting_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms, **extra}
+                "library_ms": lib_ms, "kernel_ms": k_ms[name], **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"
@@ -1509,7 +1586,8 @@ def run(dev):
             bwd_q_plain_ms, lib_ms=None,
             **raster_bound(bwd_bytes_ms + queue_bytes_ms, bwd_needed_ops_ms, bwd_ops_ms)),
         row("partition", "partition.cu", "gaussian_splatting_tpu/ops/partition.py:77",
-            part_err, part_ms, part_plain_ms, part_bound, "bytes", None),
+            part_err, part_ms, part_plain_ms, part_bound, "bytes", None,
+            key_passes_ms=key_pass_ms),
     ]}
 
 

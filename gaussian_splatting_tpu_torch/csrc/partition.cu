@@ -1,137 +1,223 @@
-// partition: stable B-way bucket partition of a (16, M) column SoA into the
-// (16, B, cap) layout of ops/partition.py.
+// bucket partition: the bucket binning's stable B-way partition of the dense
+// slots by tile % B, fused with its input: it reads each slot's tile and
+// writes, per output column, the int64 sort key and the gaussian id.
 //
-// Replaces: gaussian_splatting_tpu/ops/partition.py::_qpart_kernel (via
-// partition_soa). Same contract: column j's bucket is
-// (int(x[key_row, j]) >> bucket_shift) & (B - 1); a column is kept when
-// j < n_valid and (without a threshold, or) x[key_row, j] < drop_key_above,
-// and discarded otherwise (no bucket, no count). Every C-column input chunk
-// g owns the q output columns [g q, g q + q) of each bucket: its kept
-// columns of bucket b go there in input order (stable), rows 0..14 copied
-// and row 15 = 1; a column ranked q or later in its chunk and bucket is
-// dropped and counted; the rest of the window is pad: the bucket's sentinel
-// on the key row, zeros on rows 0..14 otherwise, row 15 = 0. counts[b] and
-// drops[b] sum the kept and dropped columns of bucket b.
+// Replaces: gaussian_splatting_tpu/ops/partition.py::_qpart_kernel at its one
+// call site (gaussian_splatting_tpu/ops/tiling.py:810: key row 0, sentinel T,
+// drop_key_above T, no n_valid, no shift), through bucket_partition. There a
+// pack_rows pass gathers a (16, M') input (tile, depth, payload, gid) that the
+// partition carries whole into a (16, B, cap) output. The port's batched sort
+// needs only the key and the gid of each output column (pack_soa gathers the
+// payload through the gid afterwards), so this kernel takes the (M,) slot
+// tiles and the (N,) depths and writes just those: slot s holds gaussian
+// s % N and is kept when s < M and tile[s] < T; slots in [M, M') (M' = M
+// rounded up to 8192, the JAX width) are discarded like sentinels. Chunk g
+// (C slots) owns the q output columns [g q, g q + q) of each bucket b = tile
+// & (B - 1): its kept slots of bucket b go there in slot order (stable);
+// a slot ranked q or later in its (chunk, bucket) is dropped and counted.
+//   kept column:  key = (tile << 32) | order_bits(depth[s % N]), gid = s % N
+//   pad column:   key = T << 32, gid = 0
+// with order_bits the float total order of tiling._float_order_bits.
+// counts[b] and drops[b] sum the kept and dropped slots of bucket b.
 //
-// The TPU kernel's two one-hot MXU matmuls (ranks from a lower-triangular
-// matmul, the scatter from a permutation matmul) and its (16, n_chunks,
-// B, q) -> (16, B, cap) transpose are TPU artefacts. Here one block takes
-// one chunk, one thread per column: ranks within the warp from
-// __match_any_sync on the bucket id and a popcount of the lower lanes,
-// across the block's warps from a per-bucket exclusive scan of the warp
-// counts in shared memory; kept columns are written straight into the
-// (16, B, cap) layout and the pads by a block-stride loop over the B q
-// window. The counts are integer atomics, so the result is deterministic.
-//
-// Bound on the H100: bytes. Per input column it reads the 4-byte key; per
-// kept column 56 bytes of payload (the 14 rows of 0..14 other than the key
-// row: the key is already read, and row 15 is computed, not read); per
-// output column it writes 64 bytes. Payload rows are read only for kept
-// columns (on the binning path most slots are sentinels that
-// drop_key_above discards), and the output, q B / C times the input's
-// width, dominates.
+// Bound on the H100: bytes. It reads the 4-byte tile of every slot below M
+// and the 4-byte depth of every kept one, and writes 12 bytes (key and gid)
+// per output column: at 1M gaussians, max_t 16, B 8, q 96 that is 64 MB +
+// 7 MB + 288 MB, ~0.11 ms at 3.35 TB/s. Design: one warp a chunk, in a
+// persistent grid, so no block-wide barrier: a lane holds the chunk's C / 32
+// slots of its column (one coalesced load each, the next chunk's loaded
+// while this one is written). The rank of a kept slot in its (chunk, bucket)
+// comes round by round from log2(B) + 1 ballots (the lanes of the same
+// bucket) and a running per-bucket count that lane b keeps for bucket b
+// (B <= 32). Kept slots are staged as (tile, gid) in the warp's shared
+// memory at (bucket, rank); then the warp writes the chunk's B x q window
+// of keys and gids, pads and kept columns together, as whole 16-byte
+// evict-first stores (q % 4 == 0: B <= 32 and B q a multiple of 128), gathering
+// the kept columns' depths (4 MB, L2-resident) as it goes. Counts and
+// drops are summed per block in shared memory and added with integer
+// atomics once a block, so the result is deterministic. A first design, one
+// 512-thread block a chunk with a block-wide scan of the warp counts and
+// four barriers a chunk, was slower on the H100 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void partition_kernel(const float* __restrict__ x, int64_t m,
-                                 const int* __restrict__ n_valid,
-                                 const float* __restrict__ sentinels, int n_buckets, int q,
-                                 int key_row, int bucket_shift, int has_drop,
-                                 float drop_key_above, float* __restrict__ out,
-                                 int64_t cap, int* __restrict__ counts,
-                                 int* __restrict__ drops) {
-  extern __shared__ int sm[];  // warp counts sm[w * B + b], then bucket totals
-  const int B = n_buckets;
-  const int C = blockDim.x;
-  const int n_warps = C / 32;
-  int* total = sm + n_warps * B;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t g = blockIdx.x;
-  const int64_t col = g * C + tid;
-  const int64_t out_rows = (int64_t)B * cap;  // stride of one output row
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;  // warps a block
 
-  for (int i = tid; i < n_warps * B; i += C) sm[i] = 0;
+// Float total order (-0 < +0) as an unsigned 32-bit key.
+__device__ __forceinline__ long long order_bits(float x) {
+  const unsigned b = __float_as_uint(x);
+  return (long long)((b & 0x80000000u) ? ~b : (b | 0x80000000u));
+}
 
-  const float key = x[(int64_t)key_row * m + col];
-  const int bid = (int)((unsigned)(int)key >> bucket_shift) & (B - 1);
-  const bool keep = col < (int64_t)*n_valid && (!has_drop || key < drop_key_above);
+__device__ __forceinline__ long long kept_key(int2 st, const float* __restrict__ depths) {
+  return ((long long)st.x << 32) | order_bits(__ldg(depths + st.y));
+}
+
+// kRounds = C / 32 slots a lane.
+template <int kRounds>
+__global__ void __launch_bounds__(kWarps * 32)
+bucket_partition_kernel(const int* __restrict__ tile, int64_t m, int64_t n_chunks,
+                        const float* __restrict__ depths, int n, int T, int B, int log2B,
+                        int q, int64_t cap, long long* __restrict__ key_out,
+                        int* __restrict__ gid_out, int* __restrict__ counts,
+                        int* __restrict__ drops) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int Bq = B * q;
+  int2* stage = reinterpret_cast<int2*>(smem) + (int64_t)warp * Bq;  // (B, q) kept (tile, gid)
+  int* kept_n = smem + 2 * kWarps * Bq + warp * B;                    // (B,) this chunk's kept
+  int* bsum = smem + 2 * kWarps * Bq + kWarps * B;                    // (2, B) block sums
+  for (int i = threadIdx.x; i < 2 * B; i += blockDim.x) bsum[i] = 0;
   __syncthreads();
 
-  // Rank among the warp's kept columns of the same bucket; discarded lanes
-  // all share the tag -1, which no kept lane has.
-  const unsigned peers = __match_any_sync(0xffffffffu, keep ? bid : -1);
-  const unsigned lower = peers & ((1u << lane) - 1u);
-  if (keep && lower == 0) sm[warp * B + bid] = __popc(peers);
-  __syncthreads();
+  const int C = 32 * kRounds;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long pad_key = (long long)T << 32;
+  int kept_acc = 0, drop_acc = 0;  // lane b < B: bucket b over this warp's chunks
 
-  // Exclusive scan of each bucket's warp counts, in warp order.
-  for (int b = tid; b < B; b += C) {
-    int run = 0;
-    for (int w = 0; w < n_warps; ++w) {
-      const int c = sm[w * B + b];
-      sm[w * B + b] = run;
-      run += c;
-    }
-    total[b] = run;
-  }
-  __syncthreads();
-
-  if (keep) {
-    const int rank = sm[warp * B + bid] + __popc(lower);
-    if (rank < q) {
-      const int64_t dst = (int64_t)bid * cap + g * q + rank;
+  int64_t g = (int64_t)blockIdx.x * kWarps + warp;
+  int t[kRounds];
 #pragma unroll
-      for (int r = 0; r < 15; ++r)
-        out[r * out_rows + dst] = r == key_row ? key : x[r * m + col];
-      out[15 * out_rows + dst] = 1.0f;
-    }
+  for (int k = 0; k < kRounds; ++k) {
+    const int64_t s = g * C + 32 * k + lane;
+    t[k] = g < n_chunks && s < m ? __ldcs(tile + s) : T;
   }
-  for (int i = tid; i < B * q; i += C) {
-    const int b = i / q;
-    const int j = i - b * q;
-    if (j < min(total[b], q)) continue;
-    const int64_t dst = (int64_t)b * cap + g * q + j;
+  for (; g < n_chunks; g += warps) {
+    // Ranks, round by round in slot order. Lane b's `cnt` counts the kept
+    // slots of bucket b so far, dropped ones included.
+    int cnt = 0;
 #pragma unroll
-    for (int r = 0; r < 16; ++r) out[r * out_rows + dst] = r == key_row ? sentinels[b] : 0.f;
+    for (int k = 0; k < kRounds; ++k) {
+      const bool keep = t[k] < T;
+      const int bid = t[k] & (B - 1);
+      unsigned same = __ballot_sync(kFull, keep);  // kept lanes of this lane's bucket
+      unsigned mine = same;                        // kept lanes of bucket `lane`
+      for (int i = 0; i < log2B; ++i) {
+        const unsigned bits = __ballot_sync(kFull, (bid >> i) & 1);
+        same &= ((bid >> i) & 1) ? bits : ~bits;
+        mine &= ((lane >> i) & 1) ? bits : ~bits;
+      }
+      const int rank = __shfl_sync(kFull, cnt, bid) + __popc(same & lower);
+      if (keep && rank < q)
+        stage[bid * q + rank] = make_int2(t[k], (int)((g * C + 32 * k + lane) % n));
+      cnt += __popc(mine);
+    }
+    if (lane < B) {
+      const int kept = min(cnt, q);
+      kept_n[lane] = kept;
+      kept_acc += kept;
+      drop_acc += cnt - kept;
+    }
+    // The next chunk's tiles, in flight while this one is written.
+    const int64_t gn = g + warps;
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const int64_t s = gn * C + 32 * k + lane;
+      t[k] = gn < n_chunks && s < m ? __ldcs(tile + s) : T;
+    }
+    __syncwarp();
+
+    // The chunk's window of every bucket: kept columns, then pads.
+    const int64_t col0 = g * q;
+    const int qk = q / 2;  // two keys a 16-byte store
+#pragma unroll 4
+    for (int i = lane; i < B * qk; i += 32) {
+      const int b = i / qk;
+      const int j = 2 * (i - b * qk);
+      const int kept = kept_n[b];
+      longlong2 v;
+      v.x = j < kept ? kept_key(stage[b * q + j], depths) : pad_key;
+      v.y = j + 1 < kept ? kept_key(stage[b * q + j + 1], depths) : pad_key;
+      __stcs(reinterpret_cast<longlong2*>(key_out + b * cap + col0 + j), v);
+    }
+    const int qg = q / 4;  // four gids a 16-byte store
+#pragma unroll 2
+    for (int i = lane; i < B * qg; i += 32) {
+      const int b = i / qg;
+      const int j = 4 * (i - b * qg);
+      const int kept = kept_n[b];
+      const int2* st = stage + b * q + j;
+      int4 v;
+      v.x = j < kept ? st[0].y : 0;
+      v.y = j + 1 < kept ? st[1].y : 0;
+      v.z = j + 2 < kept ? st[2].y : 0;
+      v.w = j + 3 < kept ? st[3].y : 0;
+      __stcs(reinterpret_cast<int4*>(gid_out + b * cap + col0 + j), v);
+    }
+    __syncwarp();
   }
-  for (int b = tid; b < B; b += C) {
-    const int kept = min(total[b], q);
-    if (kept) atomicAdd(counts + b, kept);
-    if (total[b] > kept) atomicAdd(drops + b, total[b] - kept);
+  if (lane < B) {
+    atomicAdd(bsum + lane, kept_acc);
+    atomicAdd(bsum + B + lane, drop_acc);
   }
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    if (bsum[b]) atomicAdd(counts + b, bsum[b]);
+    if (bsum[B + b]) atomicAdd(drops + b, bsum[B + b]);
+  }
+}
+
+template <int kRounds>
+int launch(const int* tile, int64_t m, int64_t n_chunks, const float* depths, int n, int T,
+           int B, int q, long long* key, int* gid, int* counts, int* drops, cudaStream_t st) {
+  int log2B = 0;
+  while ((1 << log2B) < B) ++log2B;
+  const size_t smem = ((size_t)2 * kWarps * B * q + (size_t)(kWarps + 2) * B) * sizeof(int);
+  auto* fn = bucket_partition_kernel<kRounds>;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWarps * 32, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t needed = (n_chunks + kWarps - 1) / kWarps;
+  if (blocks > needed) blocks = needed;
+  fn<<<(unsigned)blocks, kWarps * 32, smem, st>>>(tile, m, n_chunks, depths, n, T, B, log2B, q,
+                                                  n_chunks * q, key, gid, counts, drops);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (16, m) float32, m = n_chunks * chunk; n_valid: (1,) int32 on the
-// device; sentinels: (n_buckets,) float32; out: (16, n_buckets, cap) float32
-// with cap = n_chunks * q; counts, drops: (n_buckets,) int32, zeroed here.
-// chunk is the block size: a multiple of 32, at most 1024.
-extern "C" int gs_partition(const void* x, int64_t m, const void* n_valid,
-                            const void* sentinels, int n_buckets, int q, int chunk,
-                            int key_row, int bucket_shift, int has_drop,
-                            float drop_key_above, void* out, void* counts, void* drops,
-                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(counts, 0, n_buckets * sizeof(int), s);
+// tile: (m,) int32 slot tiles, T on a sentinel slot; depths: (n,) float32;
+// m_pad >= m a multiple of chunk, the slots in [m, m_pad) discarded; key:
+// (n_buckets, cap) int64 and gid: (n_buckets, cap) int32 with cap =
+// (m_pad / chunk) * q, 16-byte aligned; counts_drops: (2, n_buckets) int32,
+// the counts then the drops, zeroed here. chunk in {32, 64, ..., 1024};
+// n_buckets a power of two, at most 32; q a multiple of 4.
+extern "C" int gs_bucket_partition(const void* tile, int64_t m, int64_t m_pad,
+                                   const void* depths, int n, int T, int n_buckets, int q,
+                                   int chunk, void* key, void* gid, void* counts_drops,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(counts_drops, 0, 2 * n_buckets * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(drops, 0, n_buckets * sizeof(int), s)) != cudaSuccess)
-    return (int)err;
-  const int64_t n_chunks = m / chunk;
+  const int64_t n_chunks = m_pad / chunk;
   if (n_chunks == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)(chunk / 32 + 1) * n_buckets * sizeof(int);
-  if ((err = cudaFuncSetAttribute(partition_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return (int)err;
-  partition_kernel<<<(unsigned)n_chunks, chunk, smem, s>>>(
-      (const float*)x, m, (const int*)n_valid, (const float*)sentinels, n_buckets, q,
-      key_row, bucket_shift, has_drop, drop_key_above, (float*)out, n_chunks * q,
-      (int*)counts, (int*)drops);
-  return (int)cudaGetLastError();
+  const int* t = (const int*)tile;
+  const float* d = (const float*)depths;
+  long long* k = (long long*)key;
+  int* g = (int*)gid;
+  int* c = (int*)counts_drops;
+  int* dr = c + n_buckets;
+  switch (chunk) {
+    case 32: return launch<1>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 64: return launch<2>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 128: return launch<4>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 256: return launch<8>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 512: return launch<16>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 1024: return launch<32>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

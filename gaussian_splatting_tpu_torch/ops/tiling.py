@@ -19,11 +19,12 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
    n_isect`` and no kernel reads them, so the dense SoA is zero from column
    ``n_isect`` on (``pack_soa(n_live=tile_starts[T:])``).
 
-``sort_buckets = B`` replaces step 2 (``_bucket_binned``): ``pack_rows``
-(CUDA kernel 5) lays the slots out as (16, M) rows [tile, depth, mx, ...,
-gid], the bucket partition (``ops/partition.py``, CUDA kernel 8) splits
-them by ``tile % B`` into a (16, B, cap) layout with pad columns, and one
-stable ``torch.sort(dim=1)`` of the same int64 key sorts every bucket.
+``sort_buckets = B`` replaces step 2 (``_bucket_binned``): the bucket
+partition (``ops/partition.bucket_partition``, CUDA kernel 8) reads the
+slots' tiles and the depths, splits the slots by ``tile % B`` into a (B,
+cap) layout with pad columns and writes each column's int64 key and
+gaussian id, and one stable ``torch.sort(dim=1)`` of that key sorts every
+bucket.
 Segments then have pad columns between them and ``tile_starts[T]`` is
 ``B * cap``, not a total: counts come per bucket, never as differences of
 neighbouring starts. The pad columns of the SoA hold gaussian 0's rows
@@ -426,7 +427,7 @@ def isect_and_sort(
     zero = torch.zeros((), dtype=n_isect.dtype, device=dev)
     records = quantity_records(means2d, conics, colors, opacities, depths)
     if sort_buckets:
-        return _bucket_binned(tile_key, records, T, chunk, int(sort_buckets),
+        return _bucket_binned(tile_key, depths, records, T, chunk, int(sort_buckets),
                               float(bucket_headroom), n_isect,
                               n_dropped.to(n_isect.dtype), zero)
 
@@ -441,59 +442,32 @@ def isect_and_sort(
 BUCKET_C = 512  # slots per partition chunk, as in the JAX bucket binning
 
 
-def bucket_partition_input(tile_key: torch.Tensor, records: torch.Tensor,
-                           T: int) -> torch.Tensor:
-    """The bucket partition's (16, M') input, gathered by ``pack_rows``
-    from a (16, N) per-gaussian table through slot -> gaussian: row 0 each
-    slot's tile (``slot_tiles``; exact float, T on every pad column), rows
-    1-11 depth, mx, my, ca, cb, cc, op, r, g, b, gid, rows 12-15 zero.
-    ``records`` is the (N, 10) record table [mx, my, ca, cb, cc, op, r, g,
-    b, depth] (``quantity_records``)."""
-    return pack_rows(*bucket_input_args(tile_key, records, T), perm_bound=records.shape[0])
-
-
-def bucket_input_args(tile_key: torch.Tensor, records: torch.Tensor, T: int):
-    """``pack_rows``'s arguments ``(src, perm, key_sorted, n_valid, col0,
-    n_rows, sentinel)`` for ``bucket_partition_input``: the (16, N) table,
-    slot -> gaussian (slot s * N + g holds gaussian g) and the tiles."""
-    dev = tile_key.device
-    N = records.shape[0]
-    src = torch.zeros((16, N), dtype=torch.float32, device=dev)
-    src[1] = records[:, 9]
-    src[2:11] = records[:, :9].T
-    src[11] = torch.arange(N, dtype=torch.float32, device=dev)
-    perm = torch.remainder(torch.arange(tile_key.shape[0], device=dev), N)
-    n_valid = torch.full((1,), N, dtype=torch.int32, device=dev)
-    return src, perm, tile_key.to(torch.int32), n_valid, 0, 12, float(T)
-
-
-def _bucket_binned(tile_key, records, T, chunk, B, headroom, n_isect, n_dropped, zero):
+def _bucket_binned(tile_key, depths, records, T, chunk, B, headroom, n_isect, n_dropped,
+                   zero):
     """Partition-then-batched-sort binning (``tiling.py:787-859`` of the
-    JAX package). The partition discards sentinel slots (``drop_key_above
-    = T``) and keeps each bucket stable in slot order, so one stable sort
-    per bucket of the dense path's int64 key gives each tile the dense
-    path's order; tile t = j B + k is segment j of bucket k."""
-    from gaussian_splatting_tpu_torch.ops.partition import partition_soa, quantum_for
+    JAX package). The partition (``bucket_partition``) discards sentinel
+    slots and keeps each bucket stable in slot order, so one stable sort
+    per bucket of the dense path's int64 key, which it writes with each
+    column's gaussian, gives each tile the dense path's order; tile t = j B
+    + k is segment j of bucket k."""
+    from gaussian_splatting_tpu_torch.ops.partition import bucket_partition, quantum_for
 
     dev = tile_key.device
-    packed = bucket_partition_input(tile_key, records, T)
     q = quantum_for(BUCKET_C, B, headroom)
-    cap = (packed.shape[1] // BUCKET_C) * q
-    out, _, drops = partition_soa(packed, B, q, key_row=0, sentinel=float(T),
-                                  C=BUCKET_C, drop_key_above=float(T))
-    del packed
-
-    key = (out[0].to(torch.int64) << 32) | _float_order_bits(out[1])     # (B, cap)
+    key, gid, _, drops = bucket_partition(tile_key, depths.to(torch.float32).contiguous(), T,
+                                          B, q, C=BUCKET_C)
+    cap = key.shape[1]
     key_sorted, order = torch.sort(key, dim=1, stable=True)
-    gid = torch.gather(out[11], 1, order).to(torch.int32).reshape(-1)
-    del out, key, order
+    gid = torch.gather(gid, 1, order).reshape(-1)
+    del key, order
 
     # Per-bucket segments: bucket k holds tiles k, k + B, ...; the last
     # query, T, lands at the bucket's pad run.
     Tq = cdiv(T, B)
     karr = torch.arange(B, device=dev)[:, None]
     queries = torch.clamp_max(karr + torch.arange(Tq + 1, device=dev)[None, :] * B, T)
-    ss = torch.searchsorted(key_sorted >> 32, queries.contiguous())       # (B, Tq + 1)
+    # key >= t << 32 exactly when its tile is >= t: no shift pass over the keys.
+    ss = torch.searchsorted(key_sorted, (queries << 32).contiguous())     # (B, Tq + 1)
     starts_g = ss[:, :-1] + karr * cap
     counts_g = ss[:, 1:] - ss[:, :-1]
     tile_starts = torch.cat([starts_g.T.reshape(-1)[:T],
@@ -541,7 +515,7 @@ def pack_rows_plain(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Ten
     return out
 
 
-def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows, perm_bound):
+def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows):
     if src.dtype != torch.float32 or src.dim() != 2 or src.shape[0] != 16:
         raise ValueError(f"src must be (16, C) float32, got {tuple(src.shape)} {src.dtype}")
     M = perm.shape[0]
@@ -557,26 +531,22 @@ def _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows, perm_bou
         raise ValueError("src, perm and key_sorted must be contiguous")
     if not 1 <= n_rows <= 16:
         raise ValueError("n_rows must be in [1, 16]")
-    bound = M if perm_bound is None else perm_bound
-    if not 0 <= col0 <= src.shape[1] - bound:
-        raise ValueError("the columns [col0, col0 + perm_bound) must lie inside src")
+    if not 0 <= col0 <= src.shape[1] - M:
+        raise ValueError("the slice [col0, col0 + M) must lie inside src")
 
 
 def pack_rows(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Tensor,
               n_valid: torch.Tensor, col0: int, n_rows: int,
-              sentinel: float, perm_bound: Optional[int] = None) -> torch.Tensor:
+              sentinel: float) -> torch.Tensor:
     """The segsum-ready (16, cdiv(M, 8192) * 8192) buffer of the slice
     [col0, col0 + M) of a (16, C) stream in key order: row 0 the ascending
     int32 ``key_sorted`` as exact floats (``sentinel`` past M), rows
     1..n_rows-1 the stream's rows gathered through ``perm`` (the sort's
     permutation, slice-local) where ``col0 + perm < n_valid`` and 0
     elsewhere, rows n_rows..15 zero. Equal to the JAX ``pack_rows`` of the
-    permuted, masked rows. ``perm``'s values lie in [0, ``perm_bound``)
-    (default M, a permutation of the slice). The bucket binning passes a
-    gather instead: M slots from N < M gaussian columns, row 0 the slots'
-    tiles in slot order (not ascending there). CUDA tensors run the kernel
+    permuted, masked rows. CUDA tensors run the kernel
     (``csrc/pack_rows.cu``), CPU tensors the plain version."""
-    _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows, perm_bound)
+    _check_pack_rows_args(src, perm, key_sorted, n_valid, col0, n_rows)
     if src.device.type == "cpu":
         return pack_rows_plain(src, perm, key_sorted, n_valid, col0, n_rows, sentinel)
     if src.device.type != "cuda":
@@ -629,7 +599,8 @@ def reduce_padded_grads(grad_soa: torch.Tensor, n_gaussians: int,
     Each of K = ``max(sort_slices, 1)`` contiguous slices (one when pcap is
     not divisible by K) is reduced on its own and the K (16, N) sums added:
     one stable ``torch.sort`` of the int32 key ``where(pos < n_written, id,
-    N)``, ``pack_rows`` through its permutation, ``segment_sum_sorted``.
+    N)``, ``pack_rows`` through its permutation, ``segment_sum_sorted`` of
+    the rows ``pack_rows`` filled.
     ``with_depth=False`` leaves the ddepth payload out and returns zero
     ddepth (valid when the depth output has no cotangent)."""
     from gaussian_splatting_tpu_torch.ops.segsum import segment_sum_sorted
@@ -646,7 +617,7 @@ def reduce_padded_grads(grad_soa: torch.Tensor, n_gaussians: int,
     for i in range(K):
         key_sorted, perm = sorted_gid_key(grad_soa, N, n_valid, i * m, m)
         stacked = pack_rows(grad_soa, perm, key_sorted, n_valid, i * m, n_rows, float(N))
-        part = segment_sum_sorted(stacked, N)
+        part = segment_sum_sorted(stacked, N, n_rows)
         sums = part if sums is None else sums + part
     out = {k: sums[1 + j] for j, k in enumerate(GRAD_KEYS[:9])}
     out["ddepth"] = (sums[10] if with_depth

@@ -1,7 +1,9 @@
-"""PyTorch port, ``ops/partition.py`` (the bucket partition, CUDA kernel
-8's plain version on the CPU) against the JAX ``partition_soa`` in
-interpret mode, on the cases of ``tests/test_partition.py``. The partition
-moves values, so ``out``, ``counts`` and ``drops`` must be equal."""
+"""PyTorch port, ``ops/partition.py`` against the JAX ``partition_soa`` in
+interpret mode: the general (16, M) contract on the cases of
+``tests/test_partition.py``, and the bucket binning's fused partition
+(``bucket_partition``, CUDA kernel 8's plain version on the CPU) against the
+JAX package's ``pack_rows`` + ``partition_soa`` of the binning's input. The
+partition moves values, so every output must be equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +12,11 @@ import torch
 
 from gaussian_splatting_tpu.ops.partition import partition_soa as j_partition
 from gaussian_splatting_tpu.ops.partition import quantum_for as j_quantum_for
-from gaussian_splatting_tpu_torch.ops.partition import partition_soa, quantum_for
+from gaussian_splatting_tpu.ops.tiling import pack_rows as j_pack_rows
+from gaussian_splatting_tpu_torch.ops.partition import (
+    bucket_partition, bucket_partition_plain, partition_soa, quantum_for)
+from gaussian_splatting_tpu_torch.ops.tiling import slot_tiles
+from torch_parity import screen_gaussians, to_torch
 
 
 def _keys_uniform(rng, M):
@@ -105,3 +111,103 @@ def test_partition_checks_arguments():
         partition_soa(x, 4, 64, sentinel=(0.0, 1.0), C=128)  # one sentinel per bucket
     with pytest.raises(ValueError):
         partition_soa(x, 4, 64, sentinel=0.0, C=128, n_valid=torch.tensor([5]))
+
+
+def test_partition_soa_refuses_other_devices():
+    """The general contract is the plain reference: CPU tensors only; the
+    card's partition is ``bucket_partition``."""
+    x = torch.zeros((16, 1024), device="meta")
+    with pytest.raises(ValueError, match="bucket_partition"):
+        partition_soa(x, 4, 64, sentinel=0.0, C=128)
+
+
+def _order_bits(x):
+    b = x.astype(np.float32).view(np.int32).astype(np.int64)
+    return np.where(b >= 0, b + (1 << 31), (~b) & 0xFFFFFFFF)
+
+
+# (sort_buckets, headroom, scene kwargs): the default headroom at three
+# bucket counts, and starved buckets (tests/test_rasterize_pallas.py:269).
+BUCKET_CASES = {
+    "B2": (2, 1.5, {}),
+    "B4": (4, 1.5, {}),
+    "B8": (8, 1.5, {}),
+    "B2_starved": (2, 0.05, {"n": 400, "radius_scale": 2.0, "opacity_range": (0.05, 0.3)}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUCKET_CASES))
+def test_bucket_partition_matches_jax(rng, case):
+    """The fused partition of a scene's dense slots against the JAX bucket
+    binning's own input (``pack_rows`` of the tile, the depth, nine
+    quantities and the gid of each slot, ``tiling.py:806-812``) through the
+    JAX ``partition_soa``: key = (row 0 << 32) | order bits of row 1 and gid
+    = row 11 where row 15 marks a kept column, T << 32 and 0 on the pads;
+    counts and drops equal."""
+    B, headroom, kw = BUCKET_CASES[case]
+    width, height, max_t = 64, 48, 16
+    kw = dict(kw)
+    n = kw.pop("n", 150)
+    m2, c, col, o, d, r = screen_gaussians(rng, n, width, height, **kw)
+    tm, tc, to_, tr = to_torch(m2, c, o, r)
+    tile_key, _, T = slot_tiles(tm, tc, to_, tr, width, height, 16, max_t)
+    q = quantum_for(512, B, headroom)
+
+    g = np.arange(tile_key.shape[0]) % n
+    quantities = (d, m2[:, 0], m2[:, 1], c[:, 0], c[:, 1], c[:, 2], o, col[:, 0], col[:, 1],
+                  col[:, 2], np.arange(n))
+    rows = (tile_key.numpy().astype(np.float32),) + tuple(
+        np.asarray(v, np.float32)[g] for v in quantities)
+    packed = j_pack_rows(tuple(jnp.asarray(x) for x in rows), sentinel=float(T), interpret=True)
+    jo, jc, jd = (np.asarray(a) for a in j_partition(
+        packed, B, q, key_row=0, sentinel=float(T), drop_key_above=float(T), C=512,
+        interpret=True))
+
+    depths = torch.as_tensor(d)
+    key, gid, counts, drops = bucket_partition(tile_key, depths, T, B, q)
+    cap = (packed.shape[1] // 512) * q
+    assert tuple(key.shape) == tuple(gid.shape) == (B, cap)
+    assert key.dtype == torch.int64 and gid.dtype == counts.dtype == drops.dtype == torch.int32
+    valid = jo[15] == 1
+    want_key = np.where(valid, (jo[0].astype(np.int64) << 32) | _order_bits(jo[1]), T << 32)
+    np.testing.assert_array_equal(key.numpy(), want_key)
+    np.testing.assert_array_equal(gid.numpy(), np.where(valid, jo[11].astype(np.int32), 0))
+    np.testing.assert_array_equal(counts.numpy(), jc)
+    np.testing.assert_array_equal(drops.numpy(), jd)
+    assert int(counts.sum()) + int(drops.sum()) == int((tile_key < T).sum())
+    if case == "B2_starved":
+        assert int(drops.sum()) > 0
+    for a, b in zip((key, gid, counts, drops),
+                    bucket_partition_plain(tile_key, depths, T, B, q)):
+        assert torch.equal(a, b)
+
+
+def test_bucket_partition_checks_arguments():
+    tile = torch.zeros(1024, dtype=torch.int32)
+    depths = torch.ones(64)
+    with pytest.raises(ValueError):
+        bucket_partition(tile.long(), depths, 10, 4, 64)           # tiles not int32
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths.double(), 10, 4, 64)         # depths not float32
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths[:0], 10, 4, 64)              # no gaussian
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 0, 4, 64)                   # T not positive
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 10, 3, 64)                  # B not a power of two
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 10, 64, 16)                 # B above 32
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 10, 32, 128, C=1024)        # window above 3584
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 10, 4, 64, C=384)           # C does not divide 8192
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 10, 4, 20)                  # B q not lane-aligned
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths, 10, 4, 1024)                # headroom above 4
+    with pytest.raises(ValueError):
+        bucket_partition(tile[::2], depths, 10, 4, 64)             # not contiguous
+    with pytest.raises(ValueError):
+        bucket_partition(tile, depths.to("meta"), 10, 4, 64)       # two devices
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        bucket_partition(tile.to("meta"), depths.to("meta"), 10, 4, 64)

@@ -70,6 +70,29 @@ def test_segment_sum_sorted_checks_arguments():
         t_segsum.segment_sum_sorted(torch.zeros((16, 8), dtype=torch.float64), 4)
     with pytest.raises(ValueError):
         t_segsum.segment_sum_sorted(torch.zeros((16, 8)), 1 << 24)
+    for n_rows in (0, 17):
+        with pytest.raises(ValueError):
+            t_segsum.segment_sum_sorted(torch.zeros((16, 8)), 4, n_rows=n_rows)
+
+
+@pytest.mark.parametrize("n_rows", [10, 11])
+def test_segment_sum_sorted_n_rows(rng, n_rows):
+    """On a ``pack_rows`` buffer of n_rows rows (rows n_rows..15 zero), the
+    sums over its rows alone equal the sums over all 16 bit for bit, and the
+    JAX segsum's."""
+    N, pcap, n_written = 500, 9000, 7000
+    src = torch.as_tensor(_grad_stream(rng, N, pcap, n_written))
+    n_valid = torch.tensor([n_written], dtype=torch.int32)
+    key_sorted, perm = t_tiling.sorted_gid_key(src, N, n_valid, 0, pcap)
+    stacked = t_tiling.pack_rows(src, perm, key_sorted, n_valid, 0, n_rows, float(N))
+    got = t_segsum.segment_sum_sorted(stacked, N, n_rows=n_rows)
+    assert torch.equal(got, t_segsum.segment_sum_sorted(stacked, N))
+    assert (got[n_rows:] == 0).all()
+    buf = stacked.numpy()
+    j_out = np.asarray(j_segsum(jnp.asarray(buf), N, interpret=True))
+    for r in range(1, 16):
+        mass = np.abs(buf[r]).sum()
+        np.testing.assert_allclose(got[r].numpy(), j_out[r], atol=3e-6 * mass, rtol=1e-4)
 
 
 @pytest.mark.parametrize("n_rows", [1, 4, 10, 11, 12, 15])
