@@ -27,6 +27,12 @@ Phases (any failure exits nonzero and prints no result):
    backward workload with ``queue=True`` (the queue kernels must launch,
    the loop kernels not) beside ``queue=False``, with equal occupancy
    probes;
+2c. the ``bench.py`` workload as the JAX package runs it: compact class
+   budgets (1.05 headroom, squeezed under a power of two), the gradient
+   buffer sized to the measured occupancy + 8 %, ``reduce_slices`` 4; its
+   slot count, budget drops, gradient-stream occupancy and
+   ``grad_buffer_frac`` against ``BENCH_r05.json``, and its forward +
+   backward time beside the dense one, in turns;
 3. a small 3D scene rendered through the kernels and through the PyTorch
    oracle, which must agree, images and gradients of every parameter;
 3b. the raster kernels at tile sizes 8, 16 and 32 on adversarial entries
@@ -55,6 +61,19 @@ Phases (any failure exits nonzero and prints no result):
    then 4 steps of ``make_train_step(TrainingConfig(sort_buckets=8))``
    from the same noisy state: the loss must descend and the partition
    launch once a view in every step;
+5c. the compact layout at training view 0 with the budgets the trainer
+   chooses (``GaussianTrainer._choose_class_budgets``, the per-class
+   maximum over the batch's 4 views, each measured alone): counts equal to the
+   dense binning's with no budget drop, ``pack_soa`` on the compact gid
+   exact, the forward equal to the dense one, the backward + reduce within
+   the backward's gates of the dense plain sums; compact + sort_buckets 8:
+   the partition with ``slot_gid`` exact against its plain version, no
+   bucket intersection lost, the forward equal to the compact flat one;
+5d. 4 steps of ``make_train_step`` from phase 5's noisy starting state
+   with the budgets the trainer chooses for that state (the same per-class
+   maximum): the loss must descend, no gradient entry be dropped, no
+   budget entry at step 0 and at most 1 % of n_isect (the trainer's
+   rebudget threshold) at the later steps;
 6. at training view 0, the entries per tile (max, p50, p99, the share in
    the largest 1 % of tiles), then timings with CUDA events (medians) at
    the main paths' shapes: render,
@@ -71,10 +90,24 @@ Phases (any failure exits nonzero and prints no result):
    go beside it as ``bound_unculled_ms``;
 7. one render and one training step traced with ``torch.profiler``: device
    kernels launched, the device's busy and idle share, the kernels taking
-   most time.
+   most time;
+8. the trainer through its entry point, ``GaussianTrainer(cfg,
+   device).train`` (``trainer_phase``): 8 views of the clean scene at
+   1920x1080, 333,333 of its means as points (1M gaussians), binning
+   "auto", initial opacity 0.1, batch 4, 40 iterations with densify,
+   an opacity reset after the last step, validation and the grad-buffer probe:
+   falling finite losses, no budget drop over the trainer's rebudget
+   threshold (1 % of n_isect) at a logged iteration after the last
+   rebudget, the grad-buffer probe logged and never failing, ``final.npz``
+   reloading to the same render bit for bit, ``final.ply`` with the alive
+   rows, the native kNN used, the five kernels of the path launched; the
+   median iteration time over the iterations under that threshold, each
+   event's time and the peak memory.
 
-Output: the kernels JSON line, the card's name and power limit
-(``nvidia-smi``), then ``{"ok": true, "device": {...}}`` as the last line.
+Output: the kernels JSON line (each row also with ``kernel_ms``, the
+kernel's profiler time, and ``trainer_launches``, its launches in phase 8),
+the card's name and power limit (``nvidia-smi``), then ``{"ok": true,
+"device": {...}}`` as the last line.
 """
 
 import hashlib
@@ -98,6 +131,26 @@ SCENE_EXTENT = 2.0
 # (BENCH_r05.json: n_isect, n_tile_overflow_dropped); hardware-independent.
 BENCH_N_ISECT, BENCH_N_DROPPED = 3_779_268, 2_290
 COUNT_RTOL = 1e-4
+# The bench scene's compact binning in the JAX package (BENCH_r05.json:
+# n_sort_slots, n_grad_written, grad_buffer_frac); hardware-independent up
+# to the n_isect -1 above (one chunk of the gradient stream).
+BENCH_N_SORT_SLOTS, BENCH_N_GRAD_WRITTEN, BENCH_GRAD_FRAC = 4_717_952, 3_779_328, 0.8651
+# The trainer phase: 8 views at full size, ~334k of the scene's means as
+# its points (n_init = initial_gaussians = 1M), batch 4.
+TRAINER_VIEWS, TRAINER_POINTS, TRAINER_ITERS = 8, 333_333, 40
+# The trainer's initial opacity in that phase, the original 3DGS paper's.
+# Near the default 0.005 a footprint's cutoff 2 ln(255 op) is close to 0,
+# so the first Adam steps on the opacities grow the footprints past any
+# budget headroom, and the watchdog's 500-iteration cooldown allows one
+# rebudget in the run. From 0.1 the footprints drift slowly enough that
+# the one rebudget (near iteration 26) holds to the end. An opacity reset
+# puts every opacity back near 0.01, in the fast regime, and needs a
+# rebudget of its own: the phase resets after its last step (the
+# validation, the probe and the saved state see the reset).
+TRAINER_INIT_OPACITY = 0.1
+TRAINER_RESET_EVERY = TRAINER_ITERS
+# The trainer's rebudget threshold: budget drops above this share of n_isect.
+BUDGET_DROP_FRAC = 0.01
 # The bench scene's per-gaussian slot counts from the dense binning on a
 # CPU (int8, gaussian order), the same with the JAX package and the port:
 # 3,779,267 in all. Rounding decides three of them: 288106 and 431192
@@ -289,11 +342,12 @@ def dense_gid(sargs):
     """The dense binning's own sort at screen-space inputs ``sargs``: the
     sorted slot -> gaussian index (M,) and its segment end
     ``tile_starts[T:]``, the ``n_live`` it passes to ``pack_soa``."""
-    from gaussian_splatting_tpu_torch.ops.tiling import dense_sort, slot_tiles
+    from gaussian_splatting_tpu_torch.ops.tiling import binning_slots, sort_slots
 
     means2d, conics, _, opac, depths, radii = sargs
-    tile_key, _, T = slot_tiles(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE, MAX_T)
-    tile_starts, gid = dense_sort(tile_key, depths, T)
+    tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
+                                         MAX_T)
+    tile_starts, gid = sort_slots(tile_key, depths, T)
     return gid, tile_starts[T:]
 
 
@@ -613,10 +667,11 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
         bucket_partition, bucket_partition_plain, quantum_for)
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import bwd_tiles, fwd_tiles
     from gaussian_splatting_tpu_torch.ops.tiling import (
-        BUCKET_C, isect_and_sort, reduce_padded_grads, slot_tiles)
+        BUCKET_C, binning_slots, isect_and_sort, reduce_padded_grads)
 
     means2d, conics, _, opac, depths, radii = sargs
-    tile_key, _, T = slot_tiles(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE, MAX_T)
+    tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
+                                         MAX_T)
     q = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
     k_out = bucket_partition(tile_key, depths, T, BUCKETS, q, C=BUCKET_C)
     p_out = bucket_partition_plain(tile_key, depths, T, BUCKETS, q, C=BUCKET_C)
@@ -728,17 +783,419 @@ def bucket_train_phase(dev, scene, views, images):
     return step, state, batch, step_ms, launches
 
 
-def binning_peak_gib(sargs):
+def view_dataset(views, images):
+    """A ``ViewDataset`` (host uint8 images, viewmats, Ks) of rendered views."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.training.trainer import ViewDataset
+
+    return ViewDataset(
+        images=(images.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy(),
+        viewmats=np.stack([v["world_view_transform"].cpu().numpy() for v in views]),
+        Ks=np.stack([v["K"].cpu().numpy() for v in views]))
+
+
+def batch_class_budgets(dev, state, views, images):
+    """The trainer's class budgets (``GaussianTrainer._choose_class_budgets``
+    at ``TrainingConfig()``, MAX_T) for a batch of views. The trainer
+    measures up to 3 views of a dataset and a batch holds 4: the per-class
+    maximum of its budgets for each view alone covers them all."""
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.trainer import GaussianTrainer
+
+    cfg = TrainingConfig()
+    trainer = GaussianTrainer(cfg, device=dev)
+    per_view = [trainer._choose_class_budgets(
+        state, view_dataset(views[i:i + 1], images[i:i + 1]), cfg, MAX_T)
+        for i in range(len(views))]
+    return tuple(max(b) for b in zip(*per_view))
+
+
+def compact_phase(dev, sargs, b, fwd_out, bw, tstate, views, images, tag="train view 0"):
+    """Phase 5c: the compact binning at training view 0 with the budgets the
+    trainer chooses for the training state and the 4 views
+    (``batch_class_budgets``), against the dense binning ``b`` of the
+    same inputs: n_isect and n_dropped equal, no budget drop, ``pack_soa``
+    on the compact gid exact against its plain version, the forward equal
+    to the dense ``fwd_out``, the backward + reduce under
+    ``compare_backward``'s cotangent within the backward's gates of the
+    dense plain sums (``bw``); then compact + sort_buckets: the partition
+    with ``slot_gid`` exact against its plain version, no bucket
+    intersection lost and the forward equal to the compact flat one."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.partition import (
+        bucket_partition, bucket_partition_plain, quantum_for)
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import bwd_tiles, fwd_tiles, grad_cap
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        BUCKET_C, binning_slots, isect_and_sort, pack_soa, pack_soa_plain, quantity_records,
+        reduce_padded_grads, sort_slots, total_slots)
+
+    budgets = batch_class_budgets(dev, tstate, views, images)
+    bc = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, class_budgets=budgets)
+    n_slots = total_slots(N_GAUSSIANS, MAX_T, budgets)
+    gcap_c = grad_cap(N_GAUSSIANS, MAX_T, CHUNK, 1.0, budgets)
+    counts = [int(x) for x in (bc.n_isect, bc.n_dropped, bc.n_budget_dropped)]
+    log(f"[{tag} compact] trainer budgets {budgets}: n_sort_slots {n_slots} (dense "
+        f"{N_GAUSSIANS * MAX_T}), grad_cap {gcap_c} (dense {bw['gcap']}); n_isect "
+        f"{counts[0]} (dense {int(b.n_isect)}), n_dropped {counts[1]} (dense "
+        f"{int(b.n_dropped)}), n_budget_dropped {counts[2]}")
+    if counts != [int(b.n_isect), int(b.n_dropped), 0]:
+        fail(f"[{tag} compact] the compact binning's counts differ from the dense ones")
+
+    # pack_soa on the compact layout's own gid.
+    means2d, conics, colors, opac, depths, radii = sargs
+    tile_key, slot_gid, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT,
+                                                TILE, MAX_T, budgets)
+    starts, gid = sort_slots(tile_key, depths, T, slot_gid)
+    records = quantity_records(*sargs[:5])
+    k_soa = pack_soa(records, gid, 2 * CHUNK, starts[T:])
+    exact = (torch.equal(k_soa, pack_soa_plain(records, gid, 2 * CHUNK, starts[T:]))
+             and torch.equal(k_soa, bc.sorted_soa))
+    del k_soa
+    ntx = -(-WIDTH // TILE)
+    fc = fwd_tiles(bc.tile_starts, bc.counts, bc.sorted_soa, TILE, ntx, CHUNK)
+    torch.cuda.synchronize()
+    diff = (fc - fwd_out).abs()
+    err_rgbw = float(torch.cat([diff[:, 0:3], diff[:, 4:8]], 1).max())
+    err_depth = float(diff[:, 3].max())
+    same = torch.equal(fc, fwd_out)
+    log(f"[{tag} compact] pack kernel on the compact gid == plain and == the binning's SoA: "
+        f"{exact}; forward equal to the dense one bit for bit: {same} (max |diff| rgb/sum_w "
+        f"{err_rgbw:.3e}, depth {err_depth:.3e})")
+    if not exact or not (err_rgbw <= 1e-5 and err_depth <= 1e-4):
+        fail(f"[{tag} compact] pack or forward on the compact layout disagrees")
+    k_grad, k_meta = bwd_tiles(bc.tile_starts, bc.counts, bc.sorted_soa, bw["gout"], fwd_out,
+                               TILE, ntx, CHUNK, N_GAUSSIANS, gcap_c)
+    k_sums = reduce_padded_grads(k_grad, N_GAUSSIANS, k_meta[0], with_depth=True)
+    torch.cuda.synchronize()
+    stats, ok = grad_errors(k_sums, bw["p_sums"])
+    km, pm = k_meta.tolist(), bw["p_meta"].tolist()
+    log(f"[{tag} compact] backward kernel + reduce vs the dense plain sums: meta kernel {km}, "
+        f"dense plain {pm}; rel_l2 {max(st.get('rel_l2', 0.0) for st in stats.values()):.3e}, "
+        f"smaller half {max(st.get('rel_l2_small', 0.0) for st in stats.values()):.3e}")
+    if km != pm or not ok or not all(bool(torch.isfinite(v).all()) for v in k_sums.values()):
+        for key, st in stats.items():
+            log(f"[{tag} compact]   {key}: " + ", ".join(f"{k} {v:.3e}" for k, v in st.items()))
+        fail(f"[{tag} compact] the backward on the compact layout disagrees")
+    del k_sums
+
+    # Compact + sort_buckets: the partition reads each slot's gaussian.
+    q = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
+    k_out = bucket_partition(tile_key, depths, T, BUCKETS, q, C=BUCKET_C, slot_gid=slot_gid)
+    p_out = bucket_partition_plain(tile_key, depths, T, BUCKETS, q, C=BUCKET_C,
+                                   slot_gid=slot_gid)
+    torch.cuda.synchronize()
+    part_exact = all(torch.equal(x, y) for x, y in zip(k_out, p_out))
+    del p_out
+    bcb = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, class_budgets=budgets,
+                         sort_buckets=BUCKETS, bucket_headroom=BUCKET_HEADROOM)
+    n_b, n_drop = int(bcb.n_isect), int(bcb.n_bucket_dropped)
+    fcb = fwd_tiles(bcb.tile_starts, bcb.counts, bcb.sorted_soa, TILE, ntx, CHUNK)
+    torch.cuda.synchronize()
+    same_b = torch.equal(fcb, fc)
+    log(f"[{tag} compact bucket] partition with slot_gid ({tile_key.shape[0]} slots, "
+        f"(B, cap) = {tuple(k_out[0].shape)}) == plain: {part_exact}; n_isect {n_b} + "
+        f"n_bucket_dropped {n_drop} (compact flat n_isect {counts[0]}); forward equal to the "
+        f"compact flat one bit for bit: {same_b}")
+    if not part_exact or n_drop or n_b != counts[0] or not same_b:
+        fail(f"[{tag} compact bucket] the partition, its counts or its forward disagree")
+    del bcb, fcb, fc
+    return {"budgets": budgets, "bc": bc, "n_slots": n_slots, "gcap": gcap_c,
+            "grad": k_grad, "meta": k_meta,
+            "records": records, "gid": gid, "n_live": starts[T:], "tile_key": tile_key,
+            "slot_gid": slot_gid, "depths": depths, "T": T, "q": q}
+
+
+def compact_train_phase(dev, scene, views, images, steps=4):
+    """Phase 5d: ``make_train_step`` from the dense phase's noisy starting
+    state with the compact budgets the trainer chooses for that state and
+    the 4 views (``batch_class_budgets``): the loss must descend, no
+    gradient entry be dropped, no budget entry at step 0 and at most
+    BUDGET_DROP_FRAC of n_isect later; the step time is logged beside the
+    dense one."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.step import ViewBatch, make_train_step
+
+    state = train_state_from_numpy(noisy_train_arrays(scene, seed=1), device=dev)
+    budgets = batch_class_budgets(dev, state, views, images)
+    log(f"[compact step] the trainer's budgets for the starting state: {budgets}")
+    config = TrainingConfig(backend="auto", class_budgets=budgets)
+    step = make_train_step(config, WIDTH, HEIGHT, 3, config.backend, SCENE_EXTENT, device=dev)
+    batch = ViewBatch(images=images,
+                      viewmats=torch.stack([v["world_view_transform"] for v in views]),
+                      Ks=torch.stack([v["K"] for v in views]))
+    losses, step_ms = [], []
+    for i in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        drops = [int(m[f"stats/{k}"]) for k in ("n_budget_dropped", "n_grad_dropped")]
+        n_is = int(m["stats/n_isect"])
+        log(f"[compact step] step {i}: loss {losses[-1]:.6f}, n_isect {n_is}, "
+            f"n_budget_dropped {drops[0]}, n_grad_dropped {drops[1]}, {step_ms[-1]:.3f} ms")
+        # Step 0 runs on the state the budgets were measured on: nothing may
+        # drop. Later steps move footprints, and a gaussian that grows into
+        # a class the squeeze left empty (budget 0) drops; the trainer
+        # tolerates that up to its rebudget threshold.
+        budget_ok = drops[0] == 0 if i == 0 else drops[0] <= BUDGET_DROP_FRAC * n_is
+        if not np.isfinite(losses[-1]) or drops[1] or not budget_ok:
+            fail(f"[compact step] step {i}: loss not finite or entries dropped")
+    if not losses[-1] < losses[0]:
+        fail(f"[compact step] the loss did not descend: {losses}")
+    return step, state, batch, step_ms
+
+
+def _timed_logger_class():
+    from gaussian_splatting_tpu_torch.utils.metrics import MetricsLogger
+
+    class TimedLogger(MetricsLogger):
+        """``MetricsLogger`` that keeps the host time of each image write."""
+
+        def log_image(self, *a, **k):
+            t = time.perf_counter()
+            out = super().log_image(*a, **k)
+            self.event_s.setdefault("image write", []).append(time.perf_counter() - t)
+            return out
+
+    return TimedLogger
+
+
+class _Timed:
+    """Mixin for ``GaussianTrainer``: CUDA events at the start of every
+    step, and host time (synchronized) of each event method."""
+
+    def _make_step(self, *a):
+        import torch
+
+        step = super()._make_step(*a)
+
+        def timed(state, batch):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.step_events.append(e)
+            return step(state, batch)
+
+        return timed
+
+    def _event(self, name, fn, *a):
+        import torch
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        self.event_s.setdefault(name, []).append(time.perf_counter() - t)
+        return out
+
+    def _grow(self, *a):
+        return self._event("grow", super()._grow, *a)
+
+    def _densify(self, *a):
+        return self._event("densify", super()._densify, *a)
+
+    def validate(self, *a):
+        return self._event("validate", super().validate, *a)
+
+    def _save_final(self, *a):
+        return self._event("final save + export", super()._save_final, *a)
+
+
+def trainer_phase(dev, scene, raster):
+    """Phase 8: the port's trainer on the card through its entry point,
+    ``GaussianTrainer(cfg, device).train(dataset, out_dir, points, colors)``:
+    a ``ViewDataset`` of TRAINER_VIEWS views of the clean scene rendered by
+    the port, TRAINER_POINTS of its means with their colours as the point cloud
+    (n_init = initial_gaussians = the scene's size), binning "auto" (the
+    trainer chooses compact budgets), initial opacity TRAINER_INIT_OPACITY,
+    batch 4, densify from iteration 10 every 10 (top 2 %), an opacity reset
+    every TRAINER_RESET_EVERY, validation and the grad-buffer probe at 20
+    and 40. Checks: finite losses, the last below
+    the first; no logged iteration after the last rebudget (or at all,
+    without one) with budget drops over BUDGET_DROP_FRAC of n_isect; the
+    grad-buffer probe logged and no "grad-buffer probe failed"; ``final.npz``
+    reloads and renders bit for bit what the returned state renders;
+    ``final.ply`` holds the alive gaussians; the five kernels of the path
+    launched; the native kNN ran. Returns the timings and the launches."""
+    import dataclasses
+    import json as _json
+    import logging
+    import tempfile
+
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.core.sh import sh0_to_rgb
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.training.checkpoint import load_checkpoint
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.export import read_ply
+    from gaussian_splatting_tpu_torch.training.trainer import GaussianTrainer
+
+    class Trainer(_Timed, GaussianTrainer):
+        pass
+
+    TimedLogger = _timed_logger_class()
+
+    n_views, n_points, iters = TRAINER_VIEWS, TRAINER_POINTS, TRAINER_ITERS
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes(n_views)]
+    clean = state_from_numpy(scene, device=dev)
+    with torch.no_grad():
+        images = torch.stack([torch.clamp(raster.render_single(clean.params, vp).render, 0, 1)
+                              for vp in views])
+    dataset = view_dataset(views, images)
+    del clean, images
+    rng = np.random.default_rng(3)
+    pick = rng.choice(scene["means"].shape[0], n_points, replace=False)
+    points = scene["means"][pick]
+    colors = np.clip(sh0_to_rgb(torch.as_tensor(scene["features_dc"][pick, 0])).numpy(), 0, 1)
+    n_init = max(3 * n_points, scene["means"].shape[0])
+    cfg = TrainingConfig(iterations=iters, batch_size=4, initial_gaussians=n_init,
+                         init_opacity=TRAINER_INIT_OPACITY, max_gaussians=3 * n_init,
+                         densify_from_iteration=10, densify_interval=10,
+                         densify_topk_fraction=0.02, opacity_reset_interval=TRAINER_RESET_EVERY,
+                         val_interval=20, grad_buffer_frac=0.9, log_scalar_interval=2,
+                         log_hist_interval=20, log_image_interval=0,
+                         checkpoint_interval=10 * iters)
+
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Capture(level=logging.INFO)
+    loggers = [logging.getLogger(n) for n in ("gaussian_splatting_tpu_torch.utils.native",
+                                              "gaussian_splatting_tpu_torch.training.trainer")]
+    for lg in loggers:
+        lg.addHandler(handler)
+        lg.setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as td:
+        trainer = Trainer(cfg, logger=TimedLogger(td, config=dataclasses.asdict(cfg)),
+                          device=dev)
+        trainer.step_events, trainer.event_s = [], {}
+        trainer.logger.event_s = trainer.event_s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.train(dataset, td, points=points, colors=colors)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for lg in loggers:
+            lg.removeHandler(handler)
+        with open(f"{td}/metrics.jsonl") as f:
+            recs = [_json.loads(line) for line in f]
+        loaded, _ = load_checkpoint(f"{td}/final.npz", device=dev)
+        vm, Kd = (torch.as_tensor(x[0], device=dev) for x in (dataset.viewmats, dataset.Ks))
+        a = trainer._render_view(state, vm, Kd, 0, WIDTH, HEIGHT)
+        c = trainer._render_view(loaded, vm, Kd, 0, WIDTH, HEIGHT)
+        reload_same = torch.equal(a, c)
+        n_ply = read_ply(f"{td}/final.ply")["means"].shape[0]
+    ends = trainer.step_events
+    torch.cuda.synchronize()
+    periods = [ends[i].elapsed_time(ends[i + 1]) for i in range(len(ends) - 1)]
+    scalars = [r for r in recs if "loss" in r]
+    losses = [r["loss"] for r in scalars]
+    # Budget drops over the rebudget threshold, by logged iteration; those
+    # after the last rebudget are left unhandled.
+    over = {r["_step"]: (r["stats/n_budget_dropped"]
+                         > BUDGET_DROP_FRAC * max(r["stats/n_isect"], 1)) for r in scalars}
+    last_rebudget = trainer._last_rebudget_iter
+    unhandled = [s for s, o in over.items() if o and s > last_rebudget]
+    logged = sorted(over)
+
+    def clean(it):
+        """Iteration ``it`` (1-based) is timed when it is not the first, holds
+        no event (densify, validation, probe, reset and histograms fall on
+        multiples of 10) and the next logged iteration's drops are under the
+        threshold."""
+        nxt = next((s for s in logged if s >= it), None)
+        return it > 1 and it % 10 != 0 and nxt is not None and not over[nxt]
+
+    # Iteration i + 1 (1-based) of period i.
+    plain = [p for i, p in enumerate(periods) if clean(i + 1)]
+    n_alive = int(state.gauss.n_alive())
+    native = any("native pointops" in m for m in records)
+    rebudgets = [m for m in records if "rebudget" in m]
+    probes = [(r["_step"], r["stats/grad_buf_written"], r["stats/grad_buf_cap"])
+              for r in recs if "stats/grad_buf_cap" in r]
+    probe_failed = [m for m in records if "grad-buffer probe failed" in m]
+    for m in records:
+        if ("budgets" in m or "capacity" in m or "max_tiles" in m or "kNN" in m
+                or "grad" in m):
+            log(f"[trainer] log: {m[:160]}")
+    log(f"[trainer] {iters} iterations of batch 4 at {WIDTH}x{HEIGHT} from {n_points} points, "
+        f"n_init {n_init}, init opacity {TRAINER_INIT_OPACITY}, opacity reset every "
+        f"{TRAINER_RESET_EVERY}: wall {wall:.2f} s")
+    log("[trainer] logged iteration: loss, n_isect, n_budget_dropped (share), n_dropped: "
+        + "; ".join(f"{r['_step']}: {r['loss']:.5f}, {r['stats/n_isect']}, "
+                    f"{r['stats/n_budget_dropped']} "
+                    f"({r['stats/n_budget_dropped'] / max(r['stats/n_isect'], 1):.4f}), "
+                    f"{r['stats/n_dropped']}" for r in scalars))
+    dkeys = ("densify/cloned", "densify/split", "densify/pruned", "densify/n_after")
+    densify = [{k: r[k] for k in dkeys} for r in recs if "densify/n_after" in r]
+    log(f"[trainer] final config: max_t {trainer.config.max_tiles_per_gaussian}, budgets "
+        f"{trainer.config.class_budgets}, grad_buffer_frac {trainer.config.grad_buffer_frac}; "
+        f"rebudgets {trainer._rebudget_count}; alive {n_alive} of capacity "
+        f"{state.gauss.capacity}; densify events "
+        f"{densify}; "
+        f"val {[r['val/psnr'] for r in recs if 'val/psnr' in r]}; grad-buffer probes "
+        f"(iteration, written, cap) {probes}")
+    log(f"[trainer] reload of final.npz renders bit for bit: {reload_same}; final.ply rows "
+        f"{n_ply} (alive {n_alive}); native kNN ran: {native}; launches {launches}; peak "
+        f"device memory {peak:.2f} GiB")
+    med = statistics.median(plain) if plain else float("nan")
+    log(f"[trainer] iteration time (CUDA events, start to start) median over the "
+        f"{len(plain)} iterations after the first without an event and with budget drops "
+        f"under {BUDGET_DROP_FRAC:.0%} of n_isect at the next log: "
+        f"{med:.3f} ms (all: {[round(x, 1) for x in periods]}); events (host, synchronized): "
+        f"{ {k: [round(x * 1e3, 1) for x in v] for k, v in trainer.event_s.items()} } ms")
+    if not (losses and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"[trainer] losses not finite or not falling: {losses}")
+    if unhandled:
+        fail(f"[trainer] class-budget drops over {BUDGET_DROP_FRAC:.0%} of n_isect at logged "
+             f"iterations {unhandled}, after the last rebudget (iteration "
+             f"{last_rebudget if rebudgets else 'none'})")
+    if not probes or probe_failed:
+        fail(f"[trainer] the grad-buffer probe did not run or failed: {probe_failed}")
+    if not plain:
+        fail("[trainer] no iteration to time")
+    if not reload_same or n_ply != n_alive or not native:
+        fail("[trainer] the checkpoint, the PLY or the kNN path is wrong")
+    if min(launches[k] for k in KERNELS[:5]) < 1:
+        fail(f"[trainer] a kernel of the trainer's path never launched: {launches}")
+    return {"iter_ms": med, "periods": periods, "events": trainer.event_s, "launches": launches,
+            "peak_gib": peak, "wall_s": wall, "losses": losses}
+
+
+def binning_peak_gib(sargs, class_budgets=None):
     """Peak device memory (GiB, ``max_memory_allocated``) of one dense and
-    one bucket ``isect_and_sort`` at screen-space inputs ``sargs``, above
-    what was allocated before the call."""
+    one bucket ``isect_and_sort`` at screen-space inputs ``sargs``, and of
+    one compact one with ``class_budgets``, above what was allocated before
+    the call."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.tiling import isect_and_sort
 
     peaks = {}
-    for name, kw in (("dense", {}), ("bucket", {"sort_buckets": BUCKETS,
-                                                "bucket_headroom": BUCKET_HEADROOM})):
+    modes = [("dense", {}), ("bucket", {"sort_buckets": BUCKETS,
+                                        "bucket_headroom": BUCKET_HEADROOM})]
+    if class_budgets is not None:
+        modes.append(("compact", {"class_budgets": class_budgets}))
+    for name, kw in modes:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -912,10 +1369,82 @@ def bench_phase(dev):
         fail("[bench] the backward dropped gradient entries at grad_buffer_frac 1")
     if meta[True] != meta[False]:
         fail("[queue] rasterize_grad_meta(queue=True) differs from queue=False")
+    compact = bench_compact(args, diff, fwd_bwd, fb_ms)
     del diff, args
     torch.cuda.empty_cache()
     return {"bench_fwd_bwd_ms": fb_ms, "bench_fwd_bwd_queue_ms": fbq_ms,
-            "queue_launches": q_launches}
+            "queue_launches": q_launches, **compact}
+
+
+def bench_budgets(args):
+    """The compact class budgets of ``bench.py:92-108``: the bench scene's
+    class histogram (exact footprints, capped at MAX_T), 1.05 headroom
+    rounded up to 128 plus 128, squeezed under a power of two."""
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        class_caps, exact_tile_counts, squeeze_budgets_under_pow2)
+
+    means2d, conics, _, opac, _, radii = (x.cpu().numpy() for x in args)
+    caps = np.asarray(class_caps(MAX_T))
+    nt = np.minimum(exact_tile_counts(means2d, radii, WIDTH, HEIGHT, TILE, conics=conics,
+                                      opacities=opac), MAX_T)
+    cls = np.searchsorted(caps, np.clip(nt, 1, MAX_T))
+    hist = np.bincount(cls[nt > 0], minlength=len(caps))[:len(caps)]
+    budgets = tuple(int(np.ceil(h * 1.05 / 128) * 128 + 128) for h in hist)
+    hard_min = tuple(int(np.ceil(h / 128) * 128) for h in hist)
+    return squeeze_budgets_under_pow2(budgets, hard_min, caps)
+
+
+def bench_compact(args, diff, dense_fwd_bwd, dense_ms):
+    """Phase 2c: the ``bench.py`` workload as the JAX package runs it
+    (``bench.py:92-168``): compact budgets, the gradient buffer sized to the
+    measured occupancy + 8 %, ``reduce_slices`` 4. Its counts, which do not
+    depend on the hardware, against ``BENCH_r05.json``; its forward +
+    backward time beside the dense one, in turns."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        rasterize_grad_meta, rasterize_tiled)
+    from gaussian_splatting_tpu_torch.ops.tiling import total_slots
+
+    budgets = bench_budgets(args)
+    n_slots = total_slots(N_GAUSSIANS, MAX_T, budgets)
+    with torch.no_grad():
+        *_, stats = rasterize_tiled(*args, WIDTH, HEIGHT, tile_size=TILE, chunk=CHUNK,
+                                    max_tiles_per_gaussian=MAX_T, class_budgets=budgets,
+                                    with_stats=True)
+    n_isect, n_bd = int(stats["n_isect"]), int(stats["n_budget_dropped"])
+    nw, nd, gcap = rasterize_grad_meta(*args, WIDTH, HEIGHT, tile_size=TILE, chunk=CHUNK,
+                                       max_tiles_per_gaussian=MAX_T, class_budgets=budgets)
+    frac = min(1.0, max(float(nw + nd) * 1.08, CHUNK) / float(gcap))
+    log(f"[bench compact] budgets {budgets}: n_sort_slots {n_slots} (JAX package "
+        f"{BENCH_N_SORT_SLOTS}; dense {N_GAUSSIANS * MAX_T}), n_isect {n_isect}, "
+        f"n_budget_dropped {n_bd}, n_grad_written {nw} (JAX package {BENCH_N_GRAD_WRITTEN}), "
+        f"n_grad_dropped {nd}, grad_cap {gcap}, grad_buffer_frac {frac:.4f} (JAX package "
+        f"{BENCH_GRAD_FRAC})")
+    if n_slots != BENCH_N_SORT_SLOTS or n_bd != 0 or nd != 0:
+        fail("[bench compact] n_sort_slots or a drop count differs from the JAX package's")
+    if abs(nw - BENCH_N_GRAD_WRITTEN) > CHUNK or abs(frac - BENCH_GRAD_FRAC) > 5e-4:
+        fail("[bench compact] n_grad_written or grad_buffer_frac differs from the JAX package's")
+
+    def fwd_bwd_compact():
+        for x in diff:
+            x.grad = None
+        img, alpha, _ = rasterize_tiled(*diff, args[5], WIDTH, HEIGHT, tile_size=TILE,
+                                        chunk=CHUNK, max_tiles_per_gaussian=MAX_T,
+                                        class_budgets=budgets, grad_buffer_frac=frac,
+                                        reduce_slices=4, depth_grad=False)
+        (img.sum() + alpha.sum()).backward()
+
+    fb = {"dense": [], "compact": []}
+    for name in ("dense", "compact", "compact", "dense"):
+        fn = fwd_bwd_compact if name == "compact" else (lambda: dense_fwd_bwd(False))
+        fb[name].append(cuda_ms(fn, reps=5))
+    c_ms, d_ms = statistics.mean(fb["compact"]), statistics.mean(fb["dense"])
+    log(f"[bench compact] bench.py fwd+bwd workload, compact (frac {frac:.4f}, reduce_slices "
+        f"4): {c_ms:.3f} ms {fb['compact']}, {WIDTH * HEIGHT / (c_ms / 1e3):.1f} pixels/s; "
+        f"dense in the same turns {d_ms:.3f} ms {fb['dense']} (phase 2: {dense_ms:.3f})")
+    return {"bench_compact_fwd_bwd_ms": c_ms, "bench_compact_dense_ms": d_ms,
+            "bench_n_slots": n_slots}
 
 
 def small_phase(dev):
@@ -1294,6 +1823,8 @@ def run(dev):
     del plain_out
     bk = compare_partition(sargs, b, fwd_out, bw, "train view 0")
     bstep, bstate, bbatch, bstep_ms, blaunches = bucket_train_phase(dev, scene, views, images)
+    cp = compact_phase(dev, sargs, b, fwd_out, bw, tstate, views, images)
+    cstep, cstate, cbatch, cstep_ms = compact_train_phase(dev, scene, views, images)
     M = gid.shape[0]
     gid_long = gid.long()
     T = b.counts.shape[0]
@@ -1516,9 +2047,39 @@ def run(dev):
         f"launches per step {({k: v / BUCKET_STEPS for k, v in blaunches.items()})}")
     del bk
 
+    # The compact layout at training view 0 (the trainer's budgets).
+    budgets = cp["budgets"]
+    bc_ms = cuda_ms(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                           class_budgets=budgets), reps=5)
+    bcb_ms = cuda_ms(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                            class_budgets=budgets, sort_buckets=BUCKETS,
+                                            bucket_headroom=BUCKET_HEADROOM), reps=5)
+    c_grad, c_meta = cp["grad"], cp["meta"]
+    c_reduce_ms = cuda_ms(lambda: reduce_padded_grads(c_grad, N, c_meta[0], with_depth=False))
+    c_pack_ms = cuda_ms(lambda: pack_soa(cp["records"], cp["gid"], 2 * CHUNK, cp["n_live"]))
+    c_part_ms = cuda_ms(lambda: bucket_partition(cp["tile_key"], cp["depths"], cp["T"], BUCKETS,
+                                                 cp["q"], C=BUCKET_C, slot_gid=cp["slot_gid"]))
+    c_peaks = binning_peak_gib(sargs, budgets)
+    log(f"[time] compact binning (trainer budgets, {cp['n_slots']} slots of the dense {N * MAX_T}"
+        f"): binning incl. pack {bc_ms:.3f} ms (dense {binning_ms:.3f}), with sort_buckets "
+        f"{BUCKETS} {bcb_ms:.3f} ms (dense bucket {binning_bucket_ms:.3f}); pack_soa on the "
+        f"compact gid {c_pack_ms:.4f} ms (dense {pack_ms:.4f}); partition with slot_gid "
+        f"{c_part_ms:.4f} ms (dense {part_ms:.4f}); gradient reduce at grad_cap {cp['gcap']} "
+        f"{c_reduce_ms:.3f} ms (dense grad_cap {gcap}: {reduce_ms:.3f}); peak device memory of "
+        f"one binning: compact {c_peaks['compact']:.3f} GiB, dense {c_peaks['dense']:.3f}")
+    log(f"[time] training step with the trainer's compact budgets "
+        f"{statistics.median(cstep_ms[1:]):.3f} ms (median of steps 1-{len(cstep_ms) - 1}: "
+        f"{[round(x, 3) for x in cstep_ms]}); dense {statistics.median(step_ms[1:]):.3f} ms")
+    del cp, c_grad, c_meta
+
     trace(lambda: raster.render_single(state.params, views[0]), "one render")
     trace(lambda: step(tstate, batch), "one training step")
     trace(lambda: bstep(bstate, bbatch), "one bucket-path training step")
+    trace(lambda: cstep(cstate, cbatch), "one compact training step (the trainer's budgets)")
+    trace(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                 class_budgets=budgets), "one compact binning")
+    trace(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T), "one dense binning")
+    del cstep, cstate, cbatch
 
     # Launches: rows 1-5 from the dense training run, the queue kernels from
     # the queue path's run, the partition from the bucket path's run.
@@ -1547,13 +2108,18 @@ def run(dev):
     log(f"[time] kernels alone (torch.profiler device time, median of 10): "
         f"{json.dumps({k: round(v, 4) for k, v in k_ms.items()})}")
     del tile_key, depths_v
+    torch.cuda.empty_cache()
+
+    # 8. The trainer through its entry point; its launches beside each row's.
+    tr = trainer_phase(dev, scene, raster)
 
     def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"gaussian_splatting_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms, "kernel_ms": k_ms[name], **extra}
+                "library_ms": lib_ms, "kernel_ms": k_ms[name],
+                "trainer_launches": tr["launches"][name], **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

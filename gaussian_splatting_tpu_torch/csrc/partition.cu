@@ -1,6 +1,6 @@
-// bucket partition: the bucket binning's stable B-way partition of the dense
-// slots by tile % B, fused with its input: it reads each slot's tile and
-// writes, per output column, the int64 sort key and the gaussian id.
+// bucket partition: the bucket binning's stable B-way partition of the slots
+// by tile % B, fused with its input: it reads each slot's tile and writes, per
+// output column, the int64 sort key and the gaussian id.
 //
 // Replaces: gaussian_splatting_tpu/ops/partition.py::_qpart_kernel at its one
 // call site (gaussian_splatting_tpu/ops/tiling.py:810: key row 0, sentinel T,
@@ -10,20 +10,23 @@
 // needs only the key and the gid of each output column (pack_soa gathers the
 // payload through the gid afterwards), so this kernel takes the (M,) slot
 // tiles and the (N,) depths and writes just those: slot s holds gaussian
-// s % N and is kept when s < M and tile[s] < T; slots in [M, M') (M' = M
+// gid(s) = slot_gid[s] on the compact layout (an (M,) array of each slot's
+// gaussian) or s % N on the dense (max_t, N) one (slot_gid null), and is
+// kept when s < M and tile[s] < T; slots in [M, M') (M' = M
 // rounded up to 8192, the JAX width) are discarded like sentinels. Chunk g
 // (C slots) owns the q output columns [g q, g q + q) of each bucket b = tile
 // & (B - 1): its kept slots of bucket b go there in slot order (stable);
 // a slot ranked q or later in its (chunk, bucket) is dropped and counted.
-//   kept column:  key = (tile << 32) | order_bits(depth[s % N]), gid = s % N
+//   kept column:  key = (tile << 32) | order_bits(depth[gid(s)]), gid = gid(s)
 //   pad column:   key = T << 32, gid = 0
 // with order_bits the float total order of tiling._float_order_bits.
 // counts[b] and drops[b] sum the kept and dropped slots of bucket b.
 //
 // Bound on the H100: bytes. It reads the 4-byte tile of every slot below M
-// and the 4-byte depth of every kept one, and writes 12 bytes (key and gid)
-// per output column: at 1M gaussians, max_t 16, B 8, q 96 that is 64 MB +
-// 7 MB + 288 MB, ~0.11 ms at 3.35 TB/s. Design: one warp a chunk, in a
+// and the 4-byte depth (and on the compact layout the 4-byte slot_gid) of
+// every kept one, and writes 12 bytes (key and gid) per output column: at 1M
+// gaussians, dense, max_t 16, B 8, q 96 that is 64 MB + 7 MB + 288 MB, ~0.11
+// ms at 3.35 TB/s. Design: one warp a chunk, in a
 // persistent grid, so no block-wide barrier: a lane holds the chunk's C / 32
 // slots of its column (one coalesced load each, the next chunk's loaded
 // while this one is written). The rank of a kept slot in its (chunk, bucket)
@@ -60,7 +63,8 @@ __device__ __forceinline__ long long kept_key(int2 st, const float* __restrict__
 // kRounds = C / 32 slots a lane.
 template <int kRounds>
 __global__ void __launch_bounds__(kWarps * 32)
-bucket_partition_kernel(const int* __restrict__ tile, int64_t m, int64_t n_chunks,
+bucket_partition_kernel(const int* __restrict__ tile, const int* __restrict__ slot_gid,
+                        int64_t m, int64_t n_chunks,
                         const float* __restrict__ depths, int n, int T, int B, int log2B,
                         int q, int64_t cap, long long* __restrict__ key_out,
                         int* __restrict__ gid_out, int* __restrict__ counts,
@@ -104,8 +108,10 @@ bucket_partition_kernel(const int* __restrict__ tile, int64_t m, int64_t n_chunk
         mine &= ((lane >> i) & 1) ? bits : ~bits;
       }
       const int rank = __shfl_sync(kFull, cnt, bid) + __popc(same & lower);
-      if (keep && rank < q)
-        stage[bid * q + rank] = make_int2(t[k], (int)((g * C + 32 * k + lane) % n));
+      if (keep && rank < q) {
+        const int64_t s = g * C + 32 * k + lane;
+        stage[bid * q + rank] = make_int2(t[k], slot_gid ? __ldg(slot_gid + s) : (int)(s % n));
+      }
       cnt += __popc(mine);
     }
     if (lane < B) {
@@ -164,7 +170,8 @@ bucket_partition_kernel(const int* __restrict__ tile, int64_t m, int64_t n_chunk
 }
 
 template <int kRounds>
-int launch(const int* tile, int64_t m, int64_t n_chunks, const float* depths, int n, int T,
+int launch(const int* tile, const int* slot_gid, int64_t m, int64_t n_chunks,
+           const float* depths, int n, int T,
            int B, int q, long long* key, int* gid, int* counts, int* drops, cudaStream_t st) {
   int log2B = 0;
   while ((1 << log2B) < B) ++log2B;
@@ -183,20 +190,23 @@ int launch(const int* tile, int64_t m, int64_t n_chunks, const float* depths, in
   int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t needed = (n_chunks + kWarps - 1) / kWarps;
   if (blocks > needed) blocks = needed;
-  fn<<<(unsigned)blocks, kWarps * 32, smem, st>>>(tile, m, n_chunks, depths, n, T, B, log2B, q,
-                                                  n_chunks * q, key, gid, counts, drops);
+  fn<<<(unsigned)blocks, kWarps * 32, smem, st>>>(tile, slot_gid, m, n_chunks, depths, n, T, B,
+                                                  log2B, q, n_chunks * q, key, gid, counts,
+                                                  drops);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// tile: (m,) int32 slot tiles, T on a sentinel slot; depths: (n,) float32;
+// tile: (m,) int32 slot tiles, T on a sentinel slot; slot_gid: (m,) int32
+// gaussian of each slot, or null for gaussian s % n; depths: (n,) float32;
 // m_pad >= m a multiple of chunk, the slots in [m, m_pad) discarded; key:
 // (n_buckets, cap) int64 and gid: (n_buckets, cap) int32 with cap =
 // (m_pad / chunk) * q, 16-byte aligned; counts_drops: (2, n_buckets) int32,
 // the counts then the drops, zeroed here. chunk in {32, 64, ..., 1024};
 // n_buckets a power of two, at most 32; q a multiple of 4.
-extern "C" int gs_bucket_partition(const void* tile, int64_t m, int64_t m_pad,
+extern "C" int gs_bucket_partition(const void* tile, const void* slot_gid, int64_t m,
+                                   int64_t m_pad,
                                    const void* depths, int n, int T, int n_buckets, int q,
                                    int chunk, void* key, void* gid, void* counts_drops,
                                    void* stream) {
@@ -206,18 +216,19 @@ extern "C" int gs_bucket_partition(const void* tile, int64_t m, int64_t m_pad,
   const int64_t n_chunks = m_pad / chunk;
   if (n_chunks == 0) return (int)cudaGetLastError();
   const int* t = (const int*)tile;
+  const int* sg = (const int*)slot_gid;
   const float* d = (const float*)depths;
   long long* k = (long long*)key;
   int* g = (int*)gid;
   int* c = (int*)counts_drops;
   int* dr = c + n_buckets;
   switch (chunk) {
-    case 32: return launch<1>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
-    case 64: return launch<2>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
-    case 128: return launch<4>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
-    case 256: return launch<8>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
-    case 512: return launch<16>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
-    case 1024: return launch<32>(t, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 32: return launch<1>(t, sg, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 64: return launch<2>(t, sg, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 128: return launch<4>(t, sg, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 256: return launch<8>(t, sg, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 512: return launch<16>(t, sg, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
+    case 1024: return launch<32>(t, sg, m, n_chunks, d, n, T, n_buckets, q, k, g, c, dr, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,10 @@
-"""Gaussian parameter container (counterpart of ``gaussian_splatting_tpu/
-models/gaussians.py``).
+"""Gaussian parameter container, initialization and capacity growth
+(counterpart of ``gaussian_splatting_tpu/models/gaussians.py``).
 
 The population lives in fixed-capacity buffers with an ``alive`` mask; dead
-slots render with opacity ~0. Raw parameterization: log-space scales,
+slots render with opacity ~0; densification fills free slots
+(``models/densify.py``) and the trainer grows the buffers when they are
+nearly full (``grow_capacity``). Raw parameterization: log-space scales,
 logit-space opacity, w-first unnormalized quaternions, SH split into dc
 (C, 1, 3) + rest (C, 15, 3).
 """
@@ -10,12 +12,14 @@ logit-space opacity, w-first unnormalized quaternions, SH split into dc
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
+from gaussian_splatting_tpu_torch.core.activations import opacity_inverse_activation
+from gaussian_splatting_tpu_torch.core.sh import rgb_to_sh0
 
 NEG_INF_LOGIT = -20.0  # sigmoid(-20) ~ 2e-9: dead-slot opacity
 
@@ -64,6 +68,10 @@ class GaussianState:
 
     def n_alive(self) -> torch.Tensor:
         return torch.sum(self.alive.to(torch.int32))
+
+
+def _round_capacity(n: int, multiple: int = 2048) -> int:
+    return max(((n + multiple - 1) // multiple) * multiple, multiple)
 
 
 def empty_state(capacity: int, device: DeviceLike = None,
@@ -117,6 +125,97 @@ def state_from_numpy(arrays: Dict[str, np.ndarray],
         xyz_grad_accum=opt("xyz_grad_accum", (C, 3), torch.float32),
         xyz_grad_count=opt("xyz_grad_count", (C, 1), torch.float32),
         max_radii2d=opt("max_radii2d", (C,), torch.int32))
+
+
+def init_random(n: int, capacity: Optional[int] = None, seed: int = 0,
+                generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> GaussianState:
+    """Random init fallback (``models/gaussians.py:106`` of the JAX
+    package): ``n`` alive gaussians with standard-normal means and opacity
+    0.005 in a buffer of ``capacity`` (default 1.5 n rounded up to 2048).
+    The means come from ``generator`` (default: one on ``device`` seeded
+    with ``seed``); ``jax.random`` streams are not reproduced."""
+    dev = resolve_device(device)
+    C = capacity or _round_capacity(int(n * 1.5))
+    state = empty_state(C, dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    p = state.params
+    p.means[:n] = torch.randn((n, 3), generator=generator, device=generator.device,
+                              dtype=torch.float32).to(dev)
+    p.logit_opacities[:n] = opacity_inverse_activation(
+        torch.full((n, 1), 0.005, dtype=torch.float32, device=dev))
+    state.alive[:n] = True
+    return state
+
+
+def knn_mean_distance(points: np.ndarray, queries: np.ndarray, k: int = 7) -> np.ndarray:
+    """Mean distance to the k-1 nearest neighbors (excluding self): the
+    port's native grid-hash kNN (``utils/native.py``), scipy KD-tree when it
+    is unavailable. Init-time only, on the host."""
+    from gaussian_splatting_tpu_torch.utils.native import knn_mean_distance as _knn
+
+    return _knn(points, queries, k=min(k, len(points)))
+
+
+def init_from_points(points: np.ndarray, colors: Optional[np.ndarray], n_gaussians: int,
+                     capacity: Optional[int] = None, seed: int = 0,
+                     init_opacity: float = 0.005, jitter: float = 1e-3,
+                     device: DeviceLike = None) -> GaussianState:
+    """Initialize from a point cloud (``models/gaussians.py:135`` of the
+    JAX package, the same numpy draws from ``default_rng(seed)``): sample
+    points (with replacement when oversampling), add positional jitter,
+    RGB -> SH0 DC coefficients, kNN-7 mean-distance isotropic scales,
+    opacity ``init_opacity``, identity rotations, in a buffer of
+    ``capacity`` (default 1.5 n rounded up to 2048) on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n_pts = len(points)
+    if n_pts == 0:
+        raise ValueError("init_from_points needs at least one point")
+    if n_gaussians <= n_pts:
+        idx = rng.permutation(n_pts)[:n_gaussians]
+    else:
+        idx = rng.integers(0, n_pts, size=n_gaussians)
+    pos = points[idx] + rng.normal(size=(n_gaussians, 3)) * jitter
+
+    scales = np.clip(knn_mean_distance(points.astype(np.float64), pos, k=7), 1e-9, None)
+    log_scales = np.log(scales)[:, None].repeat(3, axis=1)
+
+    C = capacity or _round_capacity(int(n_gaussians * 1.5))
+    state = empty_state(C, dev)
+    p = state.params
+    n = n_gaussians
+    p.means[:n] = torch.as_tensor(np.asarray(pos, np.float32), device=dev)
+    p.log_scales[:n] = torch.as_tensor(np.asarray(log_scales, np.float32), device=dev)
+    p.logit_opacities[:n] = opacity_inverse_activation(
+        torch.full((n, 1), init_opacity, dtype=torch.float32, device=dev))
+    if colors is not None and len(colors) > 0:
+        p.features_dc[:n, 0, :] = rgb_to_sh0(
+            torch.as_tensor(np.asarray(colors[idx], np.float32), device=dev))
+    state.alive[:n] = True
+    return state
+
+
+def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Capacity growth: every buffer zero-padded to ``new_capacity`` rows,
+    the new slots' quaternions the identity (``models/gaussians.py:185`` of
+    the JAX package). Returns a new state; ``state`` is not changed."""
+    C_old = state.capacity
+    if new_capacity <= C_old:
+        raise ValueError(f"new capacity {new_capacity} must exceed {C_old}")
+
+    def pad(x):
+        out = x.new_zeros((new_capacity,) + tuple(x.shape[1:]))
+        out[:C_old] = x
+        return out
+
+    params = GaussianParams(**{k: pad(getattr(state.params, k)) for k in PARAM_KEYS})
+    params.quats[C_old:, 0] = 1.0
+    return GaussianState(params=params, alive=pad(state.alive),
+                         xyz_grad_accum=pad(state.xyz_grad_accum),
+                         xyz_grad_count=pad(state.xyz_grad_count),
+                         max_radii2d=pad(state.max_radii2d))
 
 
 _STATE_KEYS = ("alive", "xyz_grad_accum", "xyz_grad_count", "max_radii2d")

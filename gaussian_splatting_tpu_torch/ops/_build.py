@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written CUDA kernels in ``csrc/`` (and the host
+library ``csrc/pointops.cpp``, with g++: ``load_host``).
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
@@ -26,6 +27,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
+
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+# Host C++ for the machine's baseline ISA: a library built here may be loaded
+# on another host of the same architecture.
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -91,4 +97,33 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cpp``, built first with
+    ``g++`` into ``build/host/`` (named by a hash of the source and the
+    flags) if needed. Raises when the compiler is missing or fails."""
+    key = f"host:{name}"
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    path = HOST_BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    if not path.exists():
+        gxx = shutil.which(os.environ.get("CXX", "g++"))
+        if gxx is None:
+            raise RuntimeError("g++ not found (set CXX or put g++ on PATH)")
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([gxx, *GXX_FLAGS, str(src), "-o", str(tmp)],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}.cpp (exit {res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _loaded[key] = lib
     return lib

@@ -10,7 +10,8 @@ rest of each window is pad.
 
 ``bucket_partition`` is the bucket binning's partition
 (``tiling.isect_and_sort(sort_buckets=B)``), fused with its input: it
-takes the dense slots' tiles (``tiling.slot_tiles``) and the depths and
+takes the slots' tiles (``tiling.binning_slots``), their gaussians on the
+compact layout, and the depths and
 writes, per output column, the int64 sort key ``(tile << 32) | depth
 bits`` and the gaussian id, so that one batched (B, cap) sort replaces the
 flat one. CUDA tensors run the kernel, CPU tensors the plain version.
@@ -73,7 +74,8 @@ def _ranks(kept_cols: torch.Tensor, bid: torch.Tensor, C: int, B: int, q: int,
 
 
 def bucket_partition_plain(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
-                           n_buckets: int, quantum: int, C: int = 512):
+                           n_buckets: int, quantum: int, C: int = 512,
+                           slot_gid: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the bucket partition kernel (arguments
     checked as ``bucket_partition`` checks them)."""
     B, q = n_buckets, quantum
@@ -86,7 +88,7 @@ def bucket_partition_plain(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
     bid = tile[kept_cols] & (B - 1)
     ok, dst_c, counts, drops = _ranks(kept_cols, bid, C, B, q, n_chunks)
     src = kept_cols[ok]
-    g = torch.remainder(src, N)
+    g = torch.remainder(src, N) if slot_gid is None else slot_gid[src].to(torch.int64)
     key = torch.full((B, cap), T << 32, dtype=torch.int64, device=dev)
     gid = torch.zeros((B, cap), dtype=torch.int32, device=dev)
     key[bid[ok], dst_c] = (tile[src] << 32) | _float_order_bits(depths[g])
@@ -99,10 +101,15 @@ def bucket_partition_plain(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
 _MAX_WINDOW = 3584
 
 
-def _check_bucket_args(tile_key, depths, T, B, q, C):
+def _check_bucket_args(tile_key, depths, T, B, q, C, slot_gid):
     if tile_key.dtype != torch.int32 or tile_key.dim() != 1:
         raise ValueError(f"tile_key must be (M,) int32, got {tuple(tile_key.shape)} "
                          f"{tile_key.dtype}")
+    if slot_gid is not None and (slot_gid.dtype != torch.int32
+                                 or tuple(slot_gid.shape) != tuple(tile_key.shape)
+                                 or slot_gid.device != tile_key.device
+                                 or not slot_gid.is_contiguous()):
+        raise ValueError("slot_gid must be a contiguous (M,) int32 tensor on tile_key's device")
     if depths.dtype != torch.float32 or depths.dim() != 1 or depths.shape[0] < 1:
         raise ValueError(f"depths must be (N,) float32, N >= 1, got {tuple(depths.shape)} "
                          f"{depths.dtype}")
@@ -126,13 +133,14 @@ def _check_bucket_args(tile_key, depths, T, B, q, C):
 
 
 def bucket_partition(tile_key: torch.Tensor, depths: torch.Tensor, T: int, n_buckets: int,
-                     quantum: int, C: int = 512
+                     quantum: int, C: int = 512, slot_gid: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The bucket binning's partition of the dense slots by ``tile % B``.
+    """The bucket binning's partition of the slots by ``tile % B``.
 
     ``tile_key`` (M,) int32 is each slot's tile, T on a sentinel slot;
-    slot s holds gaussian ``s % N`` of ``depths`` (N,) float32 and is kept
-    when its tile is below T. The slots are padded to M' = M rounded up to
+    slot s holds gaussian ``slot_gid[s]`` (the compact layout, an (M,)
+    int32 tensor) or, with ``slot_gid`` None, ``s % N`` (the dense layout)
+    of ``depths`` (N,) float32, and is kept when its tile is below T. The slots are padded to M' = M rounded up to
     8192 (the JAX width; the pad is discarded), so cap = (M' / C) *
     quantum. Returns ``(key (B, cap) int64, gid (B, cap) int32, counts
     (B,) int32, drops (B,) int32)``: a kept column holds ``(tile << 32) |
@@ -143,15 +151,16 @@ def bucket_partition(tile_key: torch.Tensor, depths: torch.Tensor, T: int, n_buc
     gid rows. CUDA tensors run the kernel (``csrc/partition.cu``), CPU
     tensors the plain version."""
     B, q, T = int(n_buckets), int(quantum), int(T)
-    _check_bucket_args(tile_key, depths, T, B, q, C)
+    _check_bucket_args(tile_key, depths, T, B, q, C, slot_gid)
     if tile_key.device.type == "cpu":
-        return bucket_partition_plain(tile_key, depths, T, B, q, C)
+        return bucket_partition_plain(tile_key, depths, T, B, q, C, slot_gid)
     if tile_key.device.type != "cuda":
         raise ValueError(f"bucket_partition runs on CUDA or CPU tensors, not {tile_key.device}")
     fn = _build.load("partition").gs_bucket_partition
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     M = tile_key.shape[0]
     m_pad = cdiv(M, _PACK_C) * _PACK_C
@@ -161,7 +170,8 @@ def bucket_partition(tile_key: torch.Tensor, depths: torch.Tensor, T: int, n_buc
     gid = torch.empty((B, cap), dtype=torch.int32, device=dev)
     counts_drops = torch.empty((2, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(tile_key.data_ptr(), M, m_pad, depths.data_ptr(), depths.shape[0], T, B, q, C,
+        rc = fn(tile_key.data_ptr(), None if slot_gid is None else slot_gid.data_ptr(), M,
+                m_pad, depths.data_ptr(), depths.shape[0], T, B, q, C,
                 key.data_ptr(), gid.data_ptr(), counts_drops.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -524,12 +524,14 @@ bwd_tiles_q.launches = 0
 
 
 def grad_cap(n_gaussians: int, max_t: int, chunk: int,
-             grad_buffer_frac: float = 1.0) -> int:
+             grad_buffer_frac: float = 1.0, class_budgets=None) -> int:
     """Capacity of the backward kernel's gradient stream
-    (``rasterize_pallas.py:823-828``, dense layout, ``grad_cap_mult`` 8):
-    the bound min(N * max_t, 8N) scaled by ``grad_buffer_frac``, rounded up
-    to a chunk, plus one chunk for the final sentinel pad."""
-    bound = min(total_slots(n_gaussians, max_t, None), 8 * n_gaussians)
+    (``rasterize_pallas.py:823-828``, ``grad_cap_mult`` 8): the bound, the
+    slot count on the compact layout (``class_budgets``) and min(N * max_t,
+    8N) on the dense one, scaled by ``grad_buffer_frac``, rounded up to a
+    chunk, plus one chunk for the final sentinel pad."""
+    n_slots = total_slots(n_gaussians, max_t, class_budgets)
+    bound = n_slots if class_budgets is not None else min(n_slots, 8 * n_gaussians)
     bound = max(chunk, int(bound * float(grad_buffer_frac)))
     return cdiv(bound, chunk) * chunk + chunk
 
@@ -547,26 +549,31 @@ class _Config(NamedTuple):
     w_cap: int
     sort_buckets: int
     bucket_headroom: float
+    class_budgets: Optional[tuple]
 
 
 def _config(N, width, height, ts, chunk, max_t, grad_buffer_frac, depth_grad=True,
-            reduce_slices=0, queue=False, sort_buckets=0, bucket_headroom=1.5):
+            reduce_slices=0, queue=False, sort_buckets=0, bucket_headroom=1.5,
+            class_budgets=None):
     """The static sizes of one rasterizer configuration
     (``rasterize_pallas.py:800-828``): the gradient stream's capacity and
     the chunk queue's, ``w_cap = n_slots // chunk + T`` (at most one
-    partial chunk per tile beyond the full ones)."""
+    partial chunk per tile beyond the full ones), n_slots counting the
+    compact layout's slots when ``class_budgets`` is given."""
     T = cdiv(width, ts) * cdiv(height, ts)
+    budgets = None if class_budgets is None else tuple(int(b) for b in class_budgets)
     return _Config(width, height, ts, chunk, max_t,
-                   grad_cap(N, max_t, chunk, grad_buffer_frac), bool(depth_grad),
+                   grad_cap(N, max_t, chunk, grad_buffer_frac, budgets), bool(depth_grad),
                    int(reduce_slices), bool(queue),
-                   total_slots(N, max_t, None) // chunk + T, int(sort_buckets),
-                   float(bucket_headroom))
+                   total_slots(N, max_t, budgets) // chunk + T, int(sort_buckets),
+                   float(bucket_headroom), budgets)
 
 
 def _binned(cfg: _Config, means2d, conics, colors, opacities, depths, radii):
     return isect_and_sort(means2d, conics, colors, opacities, depths, radii, cfg.width,
                           cfg.height, cfg.ts, cfg.chunk, cfg.max_t,
-                          sort_buckets=cfg.sort_buckets, bucket_headroom=cfg.bucket_headroom)
+                          class_budgets=cfg.class_budgets, sort_buckets=cfg.sort_buckets,
+                          bucket_headroom=cfg.bucket_headroom)
 
 
 def _run_fwd(cfg: _Config, b):
@@ -665,8 +672,10 @@ def rasterize_tiled(
     gradients up to summation order. ``sort_buckets = B`` bins through the
     bucket partition with ``bucket_headroom`` (``tiling.isect_and_sort``);
     its overflow is folded into ``n_budget_dropped``, as the JAX package
-    does. ``class_budgets``, ``depth_bits`` and ``sort_bands`` are not
-    ported yet and raise ``NotImplementedError``."""
+    does. ``class_budgets`` bins on the compact footprint-class layout
+    (``tiling.compact_slots``; the gradient stream is then bounded by its
+    slot count). ``depth_bits`` and ``sort_bands`` are not ported yet and
+    raise ``NotImplementedError``."""
     ts = tile_size
     if ts * ts not in (64, 256, 1024):
         raise ValueError("tile_size must be 8, 16, or 32")
@@ -675,7 +684,7 @@ def rasterize_tiled(
     nty = cdiv(height, ts)
     cfg = _config(means2d.shape[0], width, height, ts, chunk, max_tiles_per_gaussian,
                   grad_buffer_frac, depth_grad, reduce_slices, queue, sort_buckets,
-                  bucket_headroom)
+                  bucket_headroom, class_budgets)
     out, n_isect, n_dropped, n_budget_dropped, n_grad_dropped = _RasterizeTiled.apply(
         means2d, conics, colors, opacities, depths, radii, cfg)
 
@@ -711,7 +720,7 @@ def rasterize_grad_meta(means2d, conics, colors, opacities, depths, radii, width
     N = means2d.shape[0]
     cfg = _config(N, width, height, tile_size, chunk, max_tiles_per_gaussian,
                   grad_buffer_frac, queue=queue, sort_buckets=sort_buckets,
-                  bucket_headroom=bucket_headroom)
+                  bucket_headroom=bucket_headroom, class_budgets=class_budgets)
     with torch.no_grad():
         b = _binned(cfg, means2d, conics, colors, opacities, depths, radii)
         out = _run_fwd(cfg, b)

@@ -1,17 +1,26 @@
 """Tile binning for the CUDA rasterizer (counterpart of
-``gaussian_splatting_tpu/ops/tiling.py``: the dense slot layout, sorted
-flat or through the bucket partition).
+``gaussian_splatting_tpu/ops/tiling.py``: the dense and the compact slot
+layouts, sorted flat or through the bucket partition).
 
 Pipeline, for N screen-space gaussians and ``max_t`` slots each:
 
-1. ``_tile_rects`` + ``_slot_tiles``: every gaussian owns ``max_t`` slots
-   laid out (max_t, N); slot s holds the s-th tile of the gaussian's
-   sheared window, or the sentinel T when the tile cap, the window or the
-   exact ellipse/tile cull (the 1/255 alpha gate) rules it out. Gaussians
-   with opacity below 1/255 are culled exactly.
+1. ``_tile_rects`` + ``_slot_tiles``: slot s of a gaussian holds the s-th
+   tile of its sheared window, or the sentinel T when the tile cap, the
+   window or the exact ellipse/tile cull (the 1/255 alpha gate) rules it
+   out. Gaussians with opacity below 1/255 are culled exactly. Two slot
+   layouts (``binning_slots``):
+   - dense: every gaussian owns ``max_t`` slots laid out (max_t, N), slot
+     ``s * N + g`` holding slot s of gaussian g;
+   - compact (``class_budgets``, ``compact_slots``): gaussians are grouped
+     into footprint classes (caps 1, 2, 3, 4, 6, ... ``max_t``,
+     ``class_caps``) by one stable N-sized sort, and class c expands its
+     first ``class_budgets[c]`` gaussians into a (cap_c, budget_c) block, so
+     the sort holds ``total_slots`` slots instead of N * max_t. The tiles
+     of gaussians past their class's budget are counted in
+     ``n_budget_dropped``. Each slot's gaussian is kept in an (M,) array.
 2. One stable ``torch.sort`` of the int64 key ``(tile << 32) | depth bits``
    (depth bits in float total order, so ties resolve as ``lax.sort`` over
-   the same (max_t, N) layout resolves them); sentinel slots sink to the end.
+   the same slot layout resolves them); sentinel slots sink to the end.
 3. ``searchsorted`` gives the per-tile segment starts and counts.
 4. ``pack_soa`` (CUDA kernel 1) builds the kernel-ready (16, >= M + pad)
    SoA by gathering the (N, 10) per-gaussian records through the sorted
@@ -21,7 +30,8 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
 
 ``sort_buckets = B`` replaces step 2 (``_bucket_binned``): the bucket
 partition (``ops/partition.bucket_partition``, CUDA kernel 8) reads the
-slots' tiles and the depths, splits the slots by ``tile % B`` into a (B,
+slots' tiles (and on the compact layout their gaussians) and the depths,
+splits the slots by ``tile % B`` into a (B,
 cap) layout with pad columns and writes each column's int64 key and
 gaussian id, and one stable ``torch.sort(dim=1)`` of that key sorts every
 bucket.
@@ -45,14 +55,14 @@ id key per slice of the backward kernel's stream, ``pack_rows`` (CUDA
 kernel 5) gathering the payload rows through that sort's permutation, and
 ``segment_sum_sorted`` (``ops/segsum.py``, CUDA kernel 4).
 
-Only the dense slot layout is ported; the compact footprint-class layout,
-quantized depth keys and band-split sorts raise ``NotImplementedError``
-naming their ROADMAP item.
+Quantized depth keys and band-split sorts are not ported and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -95,6 +105,40 @@ def class_caps(max_t: int) -> Tuple[int, ...]:
         c = c * 4 // 3 if c % 3 == 0 else c * 3 // 2
         caps.append(c)
     return tuple(caps)
+
+
+def squeeze_budgets_under_pow2(budgets, hard_min, caps, align: int = 128,
+                               max_trim: float = 0.10) -> Tuple[int, ...]:
+    """If trimming at most ``max_trim`` of the total slot count gets the
+    sort under the next-lower power of two, trim the headroom (never below
+    ``hard_min``, the measured per-class population), largest classes
+    first, an alignment step at a time; otherwise return the budgets
+    unchanged (``tiling.py:99-136`` of the JAX package)."""
+    budgets = [int(b) for b in budgets]
+    hard_min = [int(h) for h in hard_min]
+    s = sum(b * int(c) for b, c in zip(budgets, caps))
+    if s <= 0:
+        return tuple(budgets)
+    p2lo = 1 << (s.bit_length() - 1)
+    if s == p2lo:
+        return tuple(budgets)
+    s_hard = sum(h * int(c) for h, c in zip(hard_min, caps))
+    if s_hard > p2lo or s - p2lo > max_trim * s:
+        return tuple(budgets)
+    f = p2lo / s
+    out = [min(max(h, int(b * f) // align * align), b) for b, h in zip(budgets, hard_min)]
+    total = sum(t * int(c) for t, c in zip(out, caps))
+    order = sorted(range(len(out)), key=lambda i: -out[i] * int(caps[i]))
+    gi = 0
+    while total > p2lo and gi < 10 * len(out):
+        i = order[gi % len(out)]
+        if out[i] - align >= hard_min[i]:
+            out[i] -= align
+            total -= align * int(caps[i])
+        gi += 1
+    if total > p2lo:
+        return tuple(budgets)
+    return tuple(out)
 
 
 def total_slots(n: int, max_t: int,
@@ -344,47 +388,136 @@ pack_soa.launches = 0
 def check_binning_mode(class_budgets=None, depth_bits: int = 0,
                        sort_buckets: int = 0, sort_bands: int = 0) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a binning
-    mode the port does not have yet (the dense layout, sorted flat or
-    through ``sort_buckets``, is ported)."""
-    if class_budgets is not None:
-        raise NotImplementedError(
-            "compact class_budgets binning: ROADMAP queue 1, item 3")
+    mode the port does not have yet (the dense and compact layouts, sorted
+    flat or through ``sort_buckets``, are ported)."""
     if depth_bits:
         raise NotImplementedError("depth_bits sort keys: ROADMAP queue 1, item 9")
     if sort_bands:
         raise NotImplementedError("sort_bands binning: ROADMAP queue 1, item 9")
 
 
-def slot_tiles(means2d, conics, opacities, radii, width: int, height: int, tile_size: int,
-               max_tiles_per_gaussian: int):
-    """The dense slots' tiles: ``(tile_key (M,) int32, n_dropped, T)`` with
-    slots laid out (max_t, N) (slot s * N + g is slot s of gaussian g), T
-    on a sentinel slot, and the tiles lost to the max_t cap."""
+@functools.lru_cache(maxsize=4)
+def _compact_layout(budgets: Tuple[int, ...], max_t: int, device: torch.device):
+    """The static part of the compact layout, on ``device``, built once per
+    (budgets, max_t): the class caps, the budgets with a 0 for the virtual
+    class L, and per slot p of the concatenated (cap_c, budget_c) blocks its
+    class, its slot s in [0, cap_c) and its rank j in [0, budget_c)."""
+    caps = class_caps(max_t)
+    parts = [(np.full(cap * nc, c), np.repeat(np.arange(cap), nc), np.tile(np.arange(nc), cap))
+             for c, (cap, nc) in enumerate(zip(caps, budgets)) if nc > 0]
+    if parts:
+        cls, slot, rank = (np.concatenate(a) for a in zip(*parts))
+    else:
+        cls = slot = rank = np.zeros(0, np.int64)
+    return (torch.tensor(caps, dtype=torch.int32, device=device),
+            torch.tensor(budgets + (0,), dtype=torch.int64, device=device),
+            torch.as_tensor(cls, dtype=torch.int64, device=device),
+            torch.as_tensor(slot, dtype=torch.int32, device=device),
+            torch.as_tensor(rank, dtype=torch.int64, device=device))
+
+
+def compact_slots(tx0, ty0, nx, wt, n_capped, ellipse, ntx: int, ts: int, T: int,
+                  max_t: int, class_budgets):
+    """The compact footprint-class slots (``tiling.py:608-699`` of the JAX
+    package) of the per-gaussian window geometry of ``_tile_rects``.
+
+    Class c holds the gaussians whose capped tile count is at most
+    ``class_caps(max_t)[c]`` and above the previous cap; empty gaussians
+    fall in a virtual class L that gets no slots. One stable sort by class
+    (the order ``lax.sort`` gives, which decides who falls over a budget),
+    then class c expands the first ``class_budgets[c]`` of its gaussians
+    into a (cap_c, budget_c) block, the blocks concatenated in class order:
+    slot ``offset_c + s * budget_c + j`` holds slot s of the class's j-th
+    gaussian. The per-class starts stay on the device, and the slots are
+    enumerated in one pass over the static layout (``_compact_layout``), so
+    a binning reads nothing back to the host. Returns ``(tile_key (M,)
+    int32, slot_gid (M,) int32, n_budget_dropped)`` with M =
+    ``total_slots``; ``n_budget_dropped`` counts the capped tiles of the
+    gaussians past their class's budget."""
+    caps = class_caps(max_t)
+    L = len(caps)
+    budgets = tuple(int(b) for b in class_budgets)
+    if len(budgets) != L:
+        raise ValueError(f"need {L} class budgets for max_t={max_t}, got {len(budgets)}")
+    if min(budgets) < 0:
+        raise ValueError("class budgets must be non-negative")
+    dev = n_capped.device
+    N = n_capped.shape[0]
+    caps_t, budgets_t, p_cls, p_slot, p_rank = _compact_layout(budgets, max_t, dev)
+    cls = torch.sum(n_capped[:, None] > caps_t[None, :], dim=1)
+    cls = torch.where(n_capped > 0, cls, torch.full_like(cls, L))
+    cls_s, perm = torch.sort(cls, stable=True)
+    # Class populations by an integer scatter (a CUDA bincount reads its
+    # input's maximum back to the host).
+    counts = torch.zeros((L + 1,), dtype=torch.int64, device=dev).index_add_(
+        0, cls, torch.ones_like(cls))
+    starts = torch.cumsum(counts, 0) - counts
+
+    # Gaussians past their class's budget lose their (capped) tiles.
+    rank = torch.arange(N, device=dev) - starts[cls_s]
+    over = (rank >= budgets_t[cls_s]) & (cls_s < L)
+    ncap_s = n_capped[perm]
+    n_budget_dropped = torch.sum(torch.where(over, ncap_s, torch.zeros_like(ncap_s)))
+
+    # Ranks past N (a class's window running off the end) read gaussian 0
+    # and, being outside the class, get no tile, as the JAX package's zero
+    # padding does.
+    perm_p = torch.cat([perm, perm.new_zeros(max(max(budgets), 1))])
+    g = perm_p[starts[p_cls] + p_rank]
+    in_class = p_rank < torch.minimum(counts, budgets_t)[p_cls]
+    ncap = torch.where(in_class, n_capped[g], torch.zeros_like(p_slot))
+    tile_key = _slot_tiles(tx0[g], ty0[g], nx[g], wt[g], ncap, p_slot, ntx, ts, T,
+                           ellipse=tuple(e[g] for e in ellipse))
+    return tile_key, g.to(torch.int32), n_budget_dropped
+
+
+def binning_slots(means2d, conics, opacities, radii, width: int, height: int, tile_size: int,
+                  max_tiles_per_gaussian: int, class_budgets=None):
+    """The slots' tiles: ``(tile_key (M,) int32, slot_gid, n_dropped,
+    n_budget_dropped, T)``, T on a sentinel slot, with the tiles lost to the
+    max_t cap and to the class budgets. Dense layout (``class_budgets``
+    None): slots laid out (max_t, N), slot s * N + g being slot s of
+    gaussian g, ``slot_gid`` None (the gaussian is the slot mod N) and no
+    budget drop. Compact layout: ``compact_slots``, ``slot_gid`` the (M,)
+    int32 gaussian of each slot."""
     ts = tile_size
+    max_t = max_tiles_per_gaussian
     ntx, nty, tx0, ty0, nx, wt, n_tiles, n_capped = _tile_rects(
-        means2d, conics, opacities, radii, width, height, ts, max_tiles_per_gaussian)
+        means2d, conics, opacities, radii, width, height, ts, max_t)
     T = ntx * nty
-    s = torch.arange(max_tiles_per_gaussian, dtype=torch.int32, device=means2d.device)[:, None]
-    ell = (means2d[None, :, 0], means2d[None, :, 1], conics[None, :, 0],
-           conics[None, :, 1], conics[None, :, 2], opacities[None, :])
+    n_dropped = torch.sum(n_tiles - n_capped)
+    ell = (means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1], conics[:, 2], opacities)
+    if class_budgets is not None:
+        tile_key, slot_gid, n_budget_dropped = compact_slots(
+            tx0, ty0, nx, wt, n_capped, ell, ntx, ts, T, max_t, class_budgets)
+        return tile_key, slot_gid, n_dropped, n_budget_dropped, T
+    s = torch.arange(max_t, dtype=torch.int32, device=means2d.device)[:, None]
     tile_key = _slot_tiles(
         tx0[None, :], ty0[None, :], nx[None, :], wt[None, :],
-        n_capped[None, :], s, ntx, ts, T, ellipse=ell).reshape(-1)
-    return tile_key, torch.sum(n_tiles - n_capped), T
+        n_capped[None, :], s, ntx, ts, T, ellipse=tuple(e[None, :] for e in ell)).reshape(-1)
+    return tile_key, None, n_dropped, torch.zeros_like(n_dropped), T
 
 
-def dense_sort(tile_key: torch.Tensor, depths: torch.Tensor, T: int):
-    """The dense binning's sort of the (max_t, N) slots (``slot_tiles``):
-    one stable ``torch.sort`` of the int64 key ``(tile << 32) | depth
-    bits``. Returns ``(tile_starts (T + 1,) int32, gid (M,) int32)``: the
-    per-tile segment starts, ``tile_starts[T]`` being n_isect, and the
-    gaussian of each sorted slot."""
+def sort_slots(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
+               slot_gid: Optional[torch.Tensor] = None):
+    """The binning's sort of the slots (``binning_slots``): one stable
+    ``torch.sort`` of the int64 key ``(tile << 32) | depth bits``. A slot's
+    gaussian is ``slot_gid[s]`` (compact layout) or, with ``slot_gid``
+    None, ``s % N`` (the dense (max_t, N) layout). Returns ``(tile_starts
+    (T + 1,) int32, gid (M,) int32)``: the per-tile segment starts,
+    ``tile_starts[T]`` being n_isect, and the gaussian of each sorted
+    slot."""
     N = depths.shape[0]
-    depth_key = _float_order_bits(depths).expand(tile_key.shape[0] // N, N).reshape(-1)
+    bits = _float_order_bits(depths)
+    if slot_gid is None:
+        depth_key = bits.expand(tile_key.shape[0] // N, N).reshape(-1)
+    else:
+        depth_key = bits[slot_gid.long()]
     key_sorted, order = torch.sort((tile_key.to(torch.int64) << 32) | depth_key, stable=True)
     query = torch.arange(T + 1, dtype=torch.int64, device=tile_key.device)
     tile_starts = torch.searchsorted(key_sorted >> 32, query).to(torch.int32)
-    return tile_starts, torch.remainder(order, N).to(torch.int32)
+    gid = torch.remainder(order, N) if slot_gid is None else slot_gid[order]
+    return tile_starts, gid.to(torch.int32)
 
 
 def isect_and_sort(
@@ -406,8 +539,12 @@ def isect_and_sort(
     bucket_headroom: float = 1.5,
 ) -> TileBinning:
     """Bin and depth-sort N screen-space gaussians into the kernel-ready
-    SoA and per-tile segment tables (dense (max_t, N) slot layout). Not
-    differentiable by itself.
+    SoA and per-tile segment tables. Not differentiable by itself.
+
+    ``class_budgets=None`` selects the dense (max_t, N) slot layout; a
+    tuple of per-class gaussian budgets (one per ``class_caps(max_t)``)
+    the compact layout of ``total_slots(N, max_t, class_budgets)`` slots,
+    whose overflow is counted in ``n_budget_dropped``.
 
     ``sort_buckets = B > 0`` (a power of two) sorts through the bucket
     partition by ``tile % B`` with ``bucket_headroom`` times the balanced
@@ -419,43 +556,44 @@ def isect_and_sort(
     if N >= (1 << 24):
         raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
     max_t = max_tiles_per_gaussian
-    dev = means2d.device
 
-    tile_key, n_dropped, T = slot_tiles(means2d, conics, opacities, radii, width, height,
-                                        tile_size, max_t)
+    tile_key, slot_gid, n_dropped, n_budget_dropped, T = binning_slots(
+        means2d, conics, opacities, radii, width, height, tile_size, max_t, class_budgets)
     n_isect = torch.sum(tile_key < T)
-    zero = torch.zeros((), dtype=n_isect.dtype, device=dev)
+    n_dropped = n_dropped.to(n_isect.dtype)
+    n_budget_dropped = n_budget_dropped.to(n_isect.dtype)
     records = quantity_records(means2d, conics, colors, opacities, depths)
     if sort_buckets:
-        return _bucket_binned(tile_key, depths, records, T, chunk, int(sort_buckets),
-                              float(bucket_headroom), n_isect,
-                              n_dropped.to(n_isect.dtype), zero)
+        return _bucket_binned(tile_key, slot_gid, depths, records, T, chunk,
+                              int(sort_buckets), float(bucket_headroom), n_isect, n_dropped,
+                              n_budget_dropped)
 
-    tile_starts, gid = dense_sort(tile_key, depths, T)
+    tile_starts, gid = sort_slots(tile_key, depths, T, slot_gid)
     counts = tile_starts[1:] - tile_starts[:-1]
     soa = pack_soa(records, gid, pad=2 * chunk, n_live=tile_starts[T:])
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=counts,
-                       n_isect=n_isect, n_dropped=n_dropped.to(n_isect.dtype),
-                       n_budget_dropped=zero, n_bucket_dropped=zero)
+                       n_isect=n_isect, n_dropped=n_dropped,
+                       n_budget_dropped=n_budget_dropped,
+                       n_bucket_dropped=torch.zeros_like(n_isect))
 
 
 BUCKET_C = 512  # slots per partition chunk, as in the JAX bucket binning
 
 
-def _bucket_binned(tile_key, depths, records, T, chunk, B, headroom, n_isect, n_dropped,
-                   zero):
+def _bucket_binned(tile_key, slot_gid, depths, records, T, chunk, B, headroom, n_isect,
+                   n_dropped, n_budget_dropped):
     """Partition-then-batched-sort binning (``tiling.py:787-859`` of the
     JAX package). The partition (``bucket_partition``) discards sentinel
     slots and keeps each bucket stable in slot order, so one stable sort
-    per bucket of the dense path's int64 key, which it writes with each
-    column's gaussian, gives each tile the dense path's order; tile t = j B
-    + k is segment j of bucket k."""
+    per bucket of the flat path's int64 key, which it writes with each
+    column's gaussian (``slot_gid`` on the compact layout), gives each tile
+    the flat path's order; tile t = j B + k is segment j of bucket k."""
     from gaussian_splatting_tpu_torch.ops.partition import bucket_partition, quantum_for
 
     dev = tile_key.device
     q = quantum_for(BUCKET_C, B, headroom)
     key, gid, _, drops = bucket_partition(tile_key, depths.to(torch.float32).contiguous(), T,
-                                          B, q, C=BUCKET_C)
+                                          B, q, C=BUCKET_C, slot_gid=slot_gid)
     cap = key.shape[1]
     key_sorted, order = torch.sort(key, dim=1, stable=True)
     gid = torch.gather(gid, 1, order).reshape(-1)
@@ -477,7 +615,7 @@ def _bucket_binned(tile_key, depths, records, T, chunk, B, headroom, n_isect, n_
     n_bucket_dropped = drops.sum().to(n_isect.dtype)
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts.to(torch.int32),
                        counts=counts.to(torch.int32), n_isect=n_isect - n_bucket_dropped,
-                       n_dropped=n_dropped, n_budget_dropped=zero,
+                       n_dropped=n_dropped, n_budget_dropped=n_budget_dropped,
                        n_bucket_dropped=n_bucket_dropped)
 
 

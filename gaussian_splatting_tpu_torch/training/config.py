@@ -1,25 +1,56 @@
-"""Training configuration: the port's own copy of the part of
-``gaussian_splatting_tpu/training/config.py`` that the port reads, with the
-same field names and defaults, so a configuration means the same in both
-packages. Every field here is read by ``make_train_step`` (or the optimizer
-it calls); fields of the trainer, densification, validation, meshes and
-logging come with the slices that read them. The binning modes the port has
-not ported yet (compact ``class_budgets``, ``sort_depth_bits``,
-``sort_bands``) raise ``NotImplementedError`` where a render reads them. ``backend`` takes the port's names: ``auto`` (=
-``cuda``), ``cuda`` or ``ref``."""
+"""Training configuration: the port's own copy of
+``gaussian_splatting_tpu/training/config.py``, every field with the same
+name and default, so a configuration means the same in both packages.
+
+``backend`` takes the port's names: ``auto`` (= ``cuda``), ``cuda`` or
+``ref``. The binning modes the port has not ported yet (``sort_depth_bits``,
+``sort_bands``) raise ``NotImplementedError`` where a render reads them, and
+so does a mesh (``mesh_data * mesh_tile > 1``) in the trainer. The video
+fields (``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) and
+``eval_num_views`` are read by the CLIs, which later slices port."""
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 
 @dataclasses.dataclass
 class TrainingConfig:
-    # --- scale regularizer and ceiling (reference :42-44) ---
+    # --- video processing (read by the CLIs of a later slice) ---
+    frame_stride: int = 30
+    image_scale: float = 1.0
+    cache_dir: str = "./cache"
+    matcher: str = "sift"          # sift | orb
+
+    # --- gaussians ---
+    initial_gaussians: int = 100_000
+    # Initial opacity (the reference hardcodes 0.005; the 3DGS paper uses
+    # 0.1).
+    init_opacity: float = 0.005
+    max_gaussians: int = 10_000_000
+    densify_interval: int = 100
+    densify_from_iteration: int = 5000
+    opacity_reset_interval: int = 5000
+
+    # --- densify thresholds ---
+    densify_grads_threshold: float = 5e-4
+    # > 0: densify the top fraction of alive gaussians by accumulated grad
+    # norm each event instead of the absolute threshold.
+    densify_topk_fraction: float = 0.0
+    densify_min_opacity: float = 0.005
+    densify_clone_extent_ratio: float = 0.1
+    densify_prune_extent_ratio: float = 2.0
+    # --- scale regularizer and ceiling ---
     scale_clamp_ratio: float = 0.2
     scale_reg_max_ratio: float = 10.0
     scale_reg_weight: float = 0.1
 
-    # --- optimization (reference :54-60 and trainer.py:331-340) ---
+    # --- SH warmup ---
+    sh_degree_max: int = 3
+    sh_increment_interval: int = 1000
+
+    # --- optimization ---
+    iterations: int = 300_000
+    batch_size: int = 4
     position_lr_init: float = 1.6e-4
     position_lr_final: float = 1.6e-7
     position_lr_max_steps: int = 300_000
@@ -32,7 +63,7 @@ class TrainingConfig:
     adam_b1: float = 0.9
     adam_b2: float = 0.999
 
-    # --- losses (reference :73) ---
+    # --- losses ---
     lambda_dssim: float = 0.2
     # "bfloat16" runs the L1/SSIM image math in bf16 with f32 scalars.
     loss_dtype: str = "float32"
@@ -42,6 +73,16 @@ class TrainingConfig:
     raster_chunk: int = 256
     # Static cap on tiles covered per gaussian (overflow is counted).
     max_tiles_per_gaussian: int = 16
+    # Raise the cap to the p95 of the init population's screen footprint
+    # (bounded below by max_tiles_per_gaussian, above by max_sort_entries).
+    auto_max_tiles: bool = True
+    # Upper bound on N * max_t (sort entries) the auto mode may choose.
+    max_sort_entries: int = 32_000_000
+    # Compact footprint-class binning: "auto" and "compact" measure the
+    # init population's class histogram on the cuda backend and set minimal
+    # per-class budgets (class_budgets); overflow is counted every step
+    # (stats/n_budget_dropped) and rebudgeted with escalating headroom.
+    binning: str = "auto"              # auto | compact | dense
     # Not ported yet; nonzero raises NotImplementedError.
     sort_depth_bits: int = 0
     # B > 0 (a power of two): binning through the bucket partition by
@@ -49,24 +90,61 @@ class TrainingConfig:
     # balanced share per bucket; overflow is counted in n_budget_dropped.
     sort_buckets: int = 0
     partition_headroom: float = 1.5
-    # Not ported yet; nonzero / not None raises NotImplementedError.
+    # Not ported yet; nonzero raises NotImplementedError.
     sort_bands: int = 0
-    class_budgets: Optional[tuple] = None
     # >1: the gradient reduce sorts K static slices separately and adds the
     # per-slice segment sums.
     reduce_slices: int = 0
+    # Per-class gaussian budgets for the caps of tiling.class_caps(max_t);
+    # None = the dense N * max_t slot layout.
+    class_budgets: Optional[tuple] = None
     # Gradient-buffer capacity as a fraction of the exact bound (the slot
-    # count). 1.0 can never drop; below 1, overflow is dropped and counted.
+    # count). 1.0 can never drop; below 1 the trainer probes the exact
+    # occupancy every val_interval and raises the fraction when a probe
+    # shows drops or > 92 % occupancy.
     grad_buffer_frac: float = 1.0
     backend: str = "auto"              # auto | cuda | ref
-    # "antialiased" multiplies opacity by the covariance compensation factor.
-    rasterize_mode: str = "classic"    # classic | antialiased
 
     # --- camera pose refinement (per-train-view se(3) delta) ---
     optimize_poses: bool = False
     pose_lr_init: float = 1e-3
     pose_lr_final: float = 1e-5
     pose_start_iter: int = 0
+    # Test-time pose alignment at validation: > 0 optimizes one se(3)
+    # delta per val view (gaussians frozen) and reports val/psnr_aligned.
+    val_pose_align_steps: int = 0
+    val_pose_align_lr: float = 3e-3
+    # "antialiased" multiplies opacity by the covariance compensation factor.
+    rasterize_mode: str = "classic"    # classic | antialiased
+    capacity_headroom: float = 1.5     # buffer capacity / population target
+    # The JAX step donates its buffers; the port's step updates the state in
+    # place either way.
+    donate_step_buffers: bool = True
+
+    # --- parallelism (ROADMAP queue 1, item 7: the trainer raises for a
+    # mesh) ---
+    mesh_data: int = 1
+    mesh_tile: int = 1
+
+    # --- logging / validation ---
+    log_scalar_interval: int = 10
+    log_image_interval: int = 2000
+    log_hist_interval: int = 5000
+    val_interval: int = 1000
+    val_fraction: float = 0.1
+    val_max_views: int = 16
+    val_seed: int = 42
+    checkpoint_interval: int = 10000
+
+    # --- observability (JSONL always written; wandb off unless asked) ---
+    wandb_project: str = "3d-gaussian-splatting-tpu"
+    wandb_entity: Optional[str] = None
+    wandb_mode: str = "disabled"
+    wandb_run_name: Optional[str] = None
+    wandb_tags: Optional[List[str]] = None
+
+    # --- eval (read by the eval CLI of a later slice) ---
+    eval_num_views: int = 12
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

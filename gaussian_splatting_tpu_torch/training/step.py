@@ -18,6 +18,7 @@ import torch
 
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
 from gaussian_splatting_tpu_torch.core.se3 import apply_pose_delta
+from gaussian_splatting_tpu_torch.models.densify import clamp_scales
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
     GaussianParams,
@@ -162,11 +163,7 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
             xyz_lr = xyz_lr_schedule(config, state.iteration)
             adam_update(grads, state.opt, gauss.params, group_lrs(config, xyz_lr),
                         b1=config.adam_b1, b2=config.adam_b2, eps=config.adam_eps)
-            # Per-step scale ceiling.
-            ceiling = torch.log(
-                torch.tensor(scene_extent, dtype=torch.float32, device=dev)
-                * config.scale_clamp_ratio + 1e-9)
-            gauss.params.log_scales.clamp_max_(ceiling)
+            clamp_scales(gauss.params, scene_extent, config.scale_clamp_ratio)
             # Densify bookkeeping: ||grad means|| into all 3 accumulator
             # columns and count += 1 for every gaussian (the reference's
             # quirk the densify threshold was tuned against).

@@ -60,6 +60,15 @@ def _checkpoint(tmp_path):
     return str(path)
 
 
+def _pth(tmp_path):
+    path = tmp_path / "ref.pth"
+    a = _arrays()
+    torch.save({"model_state": {"xyz": torch.zeros(3, 3), "features_dc": torch.zeros(3, 1, 3),
+                                "opacity": torch.zeros(3, 1), "scaling": torch.zeros(3, 3),
+                                "rotation": torch.as_tensor(a["quats"])}}, path)
+    return str(path)
+
+
 def _entry_points(tmp_path):
     from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
     from gaussian_splatting_tpu_torch.models.gaussians import empty_state, state_from_numpy
@@ -70,6 +79,9 @@ def _entry_points(tmp_path):
         load_checkpoint, save_checkpoint)
     from gaussian_splatting_tpu_torch.training.config import TrainingConfig
     from gaussian_splatting_tpu_torch.training.step import make_train_step, pose_state_init
+    from gaussian_splatting_tpu_torch.models.gaussians import init_from_points, init_random
+    from gaussian_splatting_tpu_torch.training.checkpoint import load_reference_pth
+    from gaussian_splatting_tpu_torch.training.trainer import GaussianTrainer
 
     a = _arrays()
     sh = np.concatenate([a["features_dc"], a["features_rest"]], 1)
@@ -93,6 +105,10 @@ def _entry_points(tmp_path):
         "empty_state": lambda: empty_state(4),
         "look_at": lambda: look_at((0, 0, -3), (0, 0, 0)),
         "make_intrinsics": lambda: make_intrinsics(16, 16),
+        "GaussianTrainer": lambda: GaussianTrainer(TrainingConfig()),
+        "init_random": lambda: init_random(10),
+        "init_from_points": lambda: init_from_points(np.zeros((4, 3), np.float32), None, 4),
+        "load_reference_pth": lambda: load_reference_pth(_pth(tmp_path)),
     }
 
 
@@ -100,7 +116,8 @@ def _entry_points(tmp_path):
                                   "state_from_numpy", "empty_state", "look_at",
                                   "make_intrinsics", "make_train_step",
                                   "train_state_from_numpy", "save_checkpoint",
-                                  "pose_state_init", "render_grad_meta"])
+                                  "pose_state_init", "render_grad_meta", "GaussianTrainer",
+                                  "init_random", "init_from_points", "load_reference_pth"])
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = _entry_points(tmp_path)[name]

@@ -15,7 +15,7 @@ from gaussian_splatting_tpu.ops.partition import quantum_for as j_quantum_for
 from gaussian_splatting_tpu.ops.tiling import pack_rows as j_pack_rows
 from gaussian_splatting_tpu_torch.ops.partition import (
     bucket_partition, bucket_partition_plain, partition_soa, quantum_for)
-from gaussian_splatting_tpu_torch.ops.tiling import slot_tiles
+from gaussian_splatting_tpu_torch.ops.tiling import binning_slots
 from torch_parity import screen_gaussians, to_torch
 
 
@@ -150,7 +150,7 @@ def test_bucket_partition_matches_jax(rng, case):
     n = kw.pop("n", 150)
     m2, c, col, o, d, r = screen_gaussians(rng, n, width, height, **kw)
     tm, tc, to_, tr = to_torch(m2, c, o, r)
-    tile_key, _, T = slot_tiles(tm, tc, to_, tr, width, height, 16, max_t)
+    tile_key, _, _, _, T = binning_slots(tm, tc, to_, tr, width, height, 16, max_t)
     q = quantum_for(512, B, headroom)
 
     g = np.arange(tile_key.shape[0]) % n

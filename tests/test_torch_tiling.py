@@ -142,8 +142,7 @@ def test_class_caps_total_slots_and_exact_counts(rng):
         exact_tile_counts(m, r, 64, 48, 16, conics=c, opacities=o))
 
 
-@pytest.mark.parametrize("kw", [{"class_budgets": (8,) * 8}, {"depth_bits": 16},
-                                {"sort_bands": 2}])
+@pytest.mark.parametrize("kw", [{"depth_bits": 16}, {"sort_bands": 2}])
 def test_unported_binning_modes_raise(rng, kw):
     args = to_torch(*screen_gaussians(rng, 10, 32, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -177,6 +177,11 @@ def test_train_step_with_sort_buckets_matches_jax(rng):
     _assert_step_matches_jax(rng, False, sort_buckets=4)
 
 
+def test_train_step_with_class_budgets_matches_jax(rng):
+    """The same with compact ``class_budgets`` in both packages."""
+    _assert_step_matches_jax(rng, False, class_budgets=(160, 160, 128, 128, 128, 128, 128, 128))
+
+
 def _assert_step_matches_jax(rng, poses, **cfg):
     n_views = 3 if poses else 0
     arrays = train_state_arrays(rng, 150, n_views=n_views)
