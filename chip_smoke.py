@@ -102,10 +102,22 @@ Phases (any failure exits nonzero and prints no result):
    reloading to the same render bit for bit, ``final.ply`` with the alive
    rows, the native kNN used, the five kernels of the path launched; the
    median iteration time over the iterations under that threshold, each
-   event's time and the peak memory.
+   event's time and the peak memory;
+9. the user journey through the port's CLIs (``cli_phase``):
+   ``tests/synthetic_video.py`` writes a 48-frame clip at 1920x1080;
+   ``train_cli.main`` runs SfM on it and trains 30 iterations of batch 4
+   from 1M gaussians with the trainer's compact budgets; ``eval_cli.main``
+   scores 4 views of ``final.npz`` with 10 steps of pose alignment, then of
+   ``final.ply``: exit codes, SfM poses and points, n_alive at init, the
+   files, falling finite losses, the views, PNGs and metrics, the aligned
+   PSNR not below the raw one, the checkpoint's budgets in the eval's
+   render settings, the five kernels launched in each CLI; the stage
+   times, the budget drops at each log (reported, not gated: the CLI starts
+   at opacity 0.005) and the peak memory.
 
 Output: the kernels JSON line (each row also with ``kernel_ms``, the
-kernel's profiler time, and ``trainer_launches``, its launches in phase 8),
+kernel's profiler time, ``trainer_launches``, its launches in phase 8, and
+``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls),
 the card's name and power limit (``nvidia-smi``), then ``{"ok": true,
 "device": {...}}`` as the last line.
 """
@@ -151,6 +163,13 @@ TRAINER_INIT_OPACITY = 0.1
 TRAINER_RESET_EVERY = TRAINER_ITERS
 # The trainer's rebudget threshold: budget drops above this share of n_isect.
 BUDGET_DROP_FRAC = 0.01
+# The CLI journey (phase 9): tests/synthetic_video.py's clip at full size,
+# SfM at stride 4, the train CLI at 1M gaussians (max_gaussians >= 2M, so
+# n_init = min(max(3 x points, initial), max / 2) reaches it), batch 4, then
+# the eval CLI on 4 views, 10 alignment steps a view.
+CLI_FRAMES, CLI_STRIDE, CLI_ITERS = 48, 4, 30
+CLI_GAUSSIANS, CLI_MAX_GAUSSIANS = 1_000_000, 3_000_000
+CLI_EVAL_VIEWS, CLI_ALIGN_STEPS = 4, 10
 # The bench scene's per-gaussian slot counts from the dense binning on a
 # CPU (int8, gaussian order), the same with the JAX package and the port:
 # 3,779,267 in all. Rounding decides three of them: 288106 and 431192
@@ -1181,6 +1200,223 @@ def trainer_phase(dev, scene, raster):
             "peak_gib": peak, "wall_s": wall, "losses": losses}
 
 
+def _cli_call(main, argv, records):
+    """``main(argv)`` of a CLI with its standard output kept off this
+    script's (the eval CLI prints a JSON summary line); returns the exit
+    code, the output, the host seconds and the log records it emitted as
+    (time, message)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    first = len(records)
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue(), time.time() - t0, records[first:], t0
+
+
+def _first(records, pattern):
+    """(time, match) of the first record matching the regex ``pattern``."""
+    import re
+
+    for t, m in records:
+        hit = re.search(pattern, m)
+        if hit:
+            return t, hit
+    fail(f"[cli] no log line matches {pattern!r}")
+
+
+def cli_phase(dev):
+    """Phase 9: the user journey through the port's two CLIs, in a
+    temporary directory: ``tests/synthetic_video.py`` writes a clip of
+    CLI_FRAMES frames at WIDTH x HEIGHT; ``train_cli.main`` runs SfM on it
+    and trains CLI_ITERS iterations of batch 4 from CLI_GAUSSIANS gaussians
+    with the trainer's compact budgets (the CLI's own initial opacity 0.005,
+    so budget drops are reported, not gated); ``eval_cli.main`` scores
+    CLI_EVAL_VIEWS views of ``final.npz`` with CLI_ALIGN_STEPS steps of pose
+    alignment (the SfM cache hit), then of ``final.ply`` without. Checks: exit
+    codes 0, SfM >= 5 poses and >= 100 points, n_alive at init within 1 % of
+    CLI_GAUSSIANS, the train CLI's files, finite losses with the last below
+    the first, the eval's views, PNGs, PLY and finite metrics with
+    ``psnr_aligned`` >= ``psnr`` - 1e-4, the checkpoint's compact budgets in
+    the render settings, and the five kernels of the path launched in each
+    CLI. Returns the launches and the timings."""
+    import importlib.util
+    import json as _json
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from gaussian_splatting_tpu_torch import eval_cli, train_cli
+    from gaussian_splatting_tpu_torch.training import trainer as trainer_mod
+
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_video", Path(__file__).resolve().parent / "tests" / "synthetic_video.py")
+    synthetic_video = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synthetic_video)
+
+    made = []
+
+    class Trainer(_Timed, trainer_mod.GaussianTrainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.step_events, self.event_s = [], {}
+            made.append(self)
+
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append((record.created, record.getMessage()))
+
+    root = logging.getLogger()
+    handler, level = Capture(level=logging.INFO), root.level
+    root.addHandler(handler)  # the CLIs' basicConfig then adds no console handler
+    root.setLevel(logging.INFO)
+    plain_trainer = trainer_mod.GaussianTrainer
+    trainer_mod.GaussianTrainer = Trainer  # train_cli.main imports it when called
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            d = Path(td)
+            clip, cache = str(d / "clip.mp4"), str(d / "cache")
+            t0 = time.perf_counter()
+            synthetic_video.write_synthetic_video(clip, n_frames=CLI_FRAMES, width=WIDTH,
+                                                  height=HEIGHT)
+            clip_s = time.perf_counter() - t0
+            common = ["--videos", clip, "--frame-stride", str(CLI_STRIDE), "--backend", "cuda",
+                      "--device", str(dev), "--cache-dir", cache]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            rc, _, train_s, trecs, t_start = _cli_call(train_cli.main, common + [
+                "--output", str(d / "run"), "--iterations", str(CLI_ITERS), "--batch-size", "4",
+                "--initial-gaussians", str(CLI_GAUSSIANS),
+                "--max-gaussians", str(CLI_MAX_GAUSSIANS)], records)
+            torch.cuda.synchronize()
+            train_launches = read_launches()
+            train_peak = torch.cuda.max_memory_allocated() / 2**30
+            if rc != 0:
+                fail(f"[cli] train_cli exited {rc}")
+            run = d / "run"
+            missing = [f for f in ("final.npz", "final.ply", "metrics.jsonl", "config.json",
+                                   "debug_reproj.png") if not (run / f).exists()]
+            with open(run / "metrics.jsonl") as f:
+                recs = [_json.loads(line) for line in f]
+
+            evals = {}
+            for name, model, steps in (("npz", "final.npz", CLI_ALIGN_STEPS),
+                                       ("ply", "final.ply", 0)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                out = d / f"eval_{name}"
+                rc, stdout, wall, erecs, _ = _cli_call(eval_cli.main, [
+                    "--model", str(run / model), "--output", str(out),
+                    "--num-views", str(CLI_EVAL_VIEWS), "--pose-align", str(steps)] + common,
+                    records)
+                torch.cuda.synchronize()
+                if rc != 0:
+                    fail(f"[cli] eval_cli on {model} exited {rc}")
+                evals[name] = {
+                    "launches": read_launches(), "wall_s": wall, "records": erecs,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "summary": stdout.strip().splitlines()[-1],
+                    "metrics": _json.loads((out / "metrics.json").read_text()),
+                    "pngs": len(list(out.glob("view_*.png"))),
+                    "ply": (out / "model.ply").exists()}
+    finally:
+        trainer_mod.GaussianTrainer = plain_trainer
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+    # --- the train CLI ---
+    trainer = made[0]
+    _, probe = _first(trecs, r"environment probe: (.*)")
+    log(f"[cli] train_cli's environment probe (OpenCV build): {probe.group(1)}")
+    t_sfm, sfm = _first(trecs, r"SfM: (\d+) poses, (\d+) points")
+    n_poses, n_points = int(sfm.group(1)), int(sfm.group(2))
+    t_extent, _ = _first(trecs, r"scene extent")
+    _, alive = _first(trecs, r"capacity (\d+), alive (\d+)")
+    t_budgets, budgets = _first(trecs, r"compact binning budgets (\(.*?\)) \((\d+) slots")
+    t_built, _ = _first(trecs, r"built train step")
+    n_alive = int(alive.group(2))
+    ends = trainer.step_events
+    torch.cuda.synchronize()
+    periods = [ends[i].elapsed_time(ends[i + 1]) for i in range(len(ends) - 1)]
+    timed = [p for i, p in enumerate(periods) if i > 0 and (i + 1) % 10 != 0]
+    scalars = [r for r in recs if "loss" in r]
+    losses = [r["loss"] for r in scalars]
+    log(f"[cli] clip {CLI_FRAMES} frames at {WIDTH}x{HEIGHT} written in {clip_s:.2f} s; "
+        f"train_cli: SfM {n_poses} poses, {n_points} points in {t_sfm - t_start:.2f} s "
+        f"(host, from the call); dataset + logger {t_extent - t_sfm:.2f} s; init "
+        f"(capacity {alive.group(1)}, alive {n_alive}), max_t and budgets "
+        f"{t_budgets - t_extent:.2f} s: budgets {budgets.group(1)} ({budgets.group(2)} "
+        f"slots), final config budgets {trainer.config.class_budgets}, max_t "
+        f"{trainer.config.max_tiles_per_gaussian}; first step built "
+        f"{t_built - t_budgets:.2f} s later; whole call {train_s:.2f} s")
+    log("[cli] train_cli logged iteration: loss, n_isect, n_budget_dropped (share of n_isect), "
+        "n_dropped: " + "; ".join(
+            f"{r['_step']}: {r['loss']:.5f}, {r['stats/n_isect']}, "
+            f"{r['stats/n_budget_dropped']} "
+            f"({r['stats/n_budget_dropped'] / max(r['stats/n_isect'], 1):.4f}), "
+            f"{r['stats/n_dropped']}" for r in scalars)
+        + f"; rebudgets {trainer._rebudget_count}")
+    med = statistics.median(timed) if timed else float("nan")
+    log(f"[cli] train_cli iteration (CUDA events, start to start; not a trainer metric: the "
+        f"CLI starts at opacity 0.005 and drops budget entries, phase 8 is the metric): "
+        f"median {med:.3f} ms over {len(timed)} iterations without a log (all: "
+        f"{[round(x, 1) for x in periods]}); events (host, synchronized): "
+        f"{ {k: [round(x * 1e3, 1) for x in v] for k, v in trainer.event_s.items()} } ms; "
+        f"launches {train_launches}; peak device memory {train_peak:.2f} GiB")
+    if missing:
+        fail(f"[cli] train_cli did not write {missing}")
+    if n_poses < 5 or n_points < 100:
+        fail(f"[cli] SfM gave {n_poses} poses and {n_points} points")
+    if abs(n_alive - CLI_GAUSSIANS) > 0.01 * CLI_GAUSSIANS:
+        fail(f"[cli] {n_alive} gaussians alive at init, not ~{CLI_GAUSSIANS}")
+    if not (losses and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"[cli] train_cli losses not finite or not falling: {losses}")
+    if min(train_launches[k] for k in KERNELS[:5]) < 1:
+        fail(f"[cli] a kernel of the path never launched in train_cli: {train_launches}")
+
+    # --- the eval CLI ---
+    for name, ev in evals.items():
+        m = ev["metrics"]
+        views = [(_first(ev["records"], rf"view {r['view']}: .*host ms: render \+ metrics "
+                         r"([\d.]+), alignment ([\d.]+), png ([\d.]+)")[1].groups(), r)
+                 for r in m["per_view"]]
+        log(f"[cli] eval_cli {name}: {ev['summary']}; per view (psnr, psnr_aligned; host ms "
+            f"render + metrics, alignment, png): "
+            + "; ".join(f"{r['view']}: {r['psnr']:.4f}, {r.get('psnr_aligned', '-')}, "
+                        f"{'/'.join(g)}" for g, r in views)
+            + f"; whole call {ev['wall_s']:.2f} s; launches {ev['launches']}; peak device "
+            f"memory {ev['peak_gib']:.2f} GiB")
+        finite = all(np.isfinite(r[k]) for r in m["per_view"] for k in ("l1", "ssim", "psnr"))
+        if m["num_views"] != CLI_EVAL_VIEWS or ev["pngs"] != CLI_EVAL_VIEWS or not ev["ply"]:
+            fail(f"[cli] eval_cli on {name}: {m['num_views']} views, {ev['pngs']} PNGs, "
+                 f"model.ply {ev['ply']}")
+        if not finite:
+            fail(f"[cli] eval_cli on {name}: metrics not finite")
+    npz = evals["npz"]
+    if not any("SfM cache hit" in msg for _, msg in npz["records"]):
+        fail("[cli] eval_cli ran SfM again instead of hitting the train CLI's cache")
+    _, settings = _first(npz["records"], r"render settings from checkpoint meta: .*budgets=(.*)")
+    log(f"[cli] eval_cli npz render settings: {settings.group(0)}")
+    if settings.group(1) != str(tuple(trainer.config.class_budgets)):
+        fail(f"[cli] eval_cli did not render with the checkpoint's compact budgets "
+             f"{trainer.config.class_budgets}")
+    bad = [r for r in npz["metrics"]["per_view"]
+           if not r["psnr_aligned"] >= r["psnr"] - 1e-4]
+    if bad:
+        fail(f"[cli] psnr_aligned below psnr: {bad}")
+    if min(npz["launches"][k] for k in KERNELS[:5]) < 1:
+        fail(f"[cli] a kernel of the path never launched in eval_cli: {npz['launches']}")
+    return {"train_launches": train_launches, "eval_launches": npz["launches"]}
+
+
 def binning_peak_gib(sargs, class_budgets=None):
     """Peak device memory (GiB, ``max_memory_allocated``) of one dense and
     one bucket ``isect_and_sort`` at screen-space inputs ``sargs``, and of
@@ -2112,6 +2348,8 @@ def run(dev):
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
+    # 9. The user journey through the two CLIs; their launches too.
+    cli = cli_phase(dev)
 
     def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms, **extra):
         return {"name": name, "route": "cuda",
@@ -2119,7 +2357,9 @@ def run(dev):
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms, "kernel_ms": k_ms[name],
-                "trainer_launches": tr["launches"][name], **extra}
+                "trainer_launches": tr["launches"][name],
+                "train_cli_launches": cli["train_launches"][name],
+                "eval_cli_launches": cli["eval_launches"][name], **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

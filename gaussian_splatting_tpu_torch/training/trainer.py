@@ -108,6 +108,38 @@ def compute_scene_geometry(points_3d: np.ndarray, all_poses: List[np.ndarray]):
     return extent, radii <= extent
 
 
+def align_pose(render_image, viewmat: torch.Tensor, gt: torch.Tensor, n_steps: int, lr: float,
+               lr_decay: float, b1: float, b2: float, eps: float) -> torch.Tensor:
+    """Test-time pose alignment: ``n_steps`` of Adam on one se(3) delta xi of
+    ``viewmat``, the gaussians frozen, against the MSE of the clipped
+    ``render_image(apply_pose_delta(viewmat, xi))`` to ``gt``, at the rate
+    ``lr * lr_decay ** (t / n_steps)`` of step t (``lr_decay`` 1 keeps it
+    constant). Returns the view at the best delta visited, xi = 0 first, so
+    the aligned MSE is never above the raw one.
+
+    The trainer's validation decays the rate 30x with the config's betas
+    (JAX ``trainer.py:845``); the eval CLI keeps it constant with betas
+    (0.9, 0.999, 1e-8) (JAX ``eval_cli.py:164-208``)."""
+    z = torch.zeros((6,), dtype=torch.float32, device=viewmat.device)
+    xi, mu, nu, best_xi = z, z, z, z
+    best_l = torch.tensor(float("inf"), device=viewmat.device)
+    for i in range(n_steps):
+        leaf = xi.detach().requires_grad_(True)
+        d = torch.clamp(render_image(apply_pose_delta(viewmat, leaf)), 0.0, 1.0) - gt
+        loss = torch.mean(d * d)
+        (g,) = torch.autograd.grad(loss, leaf)
+        with torch.no_grad():
+            better = loss < best_l
+            best_xi = torch.where(better, xi, best_xi)
+            best_l = torch.where(better, loss, best_l)
+            t = float(i + 1)
+            mu = b1 * mu + (1.0 - b1) * g
+            nu = b2 * nu + (1.0 - b2) * g * g
+            lr_t = lr * lr_decay ** (t / float(n_steps))
+            xi = xi - lr_t * (mu / (1.0 - b1 ** t)) / (torch.sqrt(nu / (1.0 - b2 ** t)) + eps)
+    return apply_pose_delta(viewmat, best_xi)
+
+
 def _pad_moments(moments: GaussianParams, params: GaussianParams) -> GaussianParams:
     """Adam moments zero-padded to the grown parameters' capacity."""
     def pad(m, p):
@@ -652,37 +684,17 @@ class GaussianTrainer:
         return torch.clamp(img, 0.0, 1.0)
 
     def _align_pose(self, state, viewmat, K, gt, sh_degree, width, height):
-        """Test-time pose alignment: Adam on one se(3) delta of ``viewmat``,
-        the gaussians frozen, against the MSE to ``gt``, the learning rate
-        decaying 30x over ``val_pose_align_steps``; returns the view at the
-        best delta visited."""
+        """Test-time pose alignment of one validation view: ``align_pose``
+        with the learning rate decaying 30x over ``val_pose_align_steps`` and
+        the config's Adam betas (JAX ``trainer.py:845``)."""
         cfg = self.config
-        b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
-        lr, n_steps = cfg.val_pose_align_lr, cfg.val_pose_align_steps
         p = state.gauss.params
         params = GaussianParams(**{k: getattr(p, k).detach() for k in PARAM_KEYS})
         masked_op = params.masked_opacities(state.gauss.alive)
-        z = torch.zeros((6,), dtype=torch.float32, device=self.device)
-        xi, mu, nu, best_xi = z, z, z, z
-        best_l = torch.tensor(float("inf"), device=self.device)
-        for i in range(n_steps):
-            leaf = xi.detach().requires_grad_(True)
-            img = self._render_raw(params, masked_op, apply_pose_delta(viewmat, leaf), K,
-                                   sh_degree, width, height)
-            d = torch.clamp(img, 0.0, 1.0) - gt
-            loss = torch.mean(d * d)
-            (g,) = torch.autograd.grad(loss, leaf)
-            with torch.no_grad():
-                better = loss < best_l
-                best_xi = torch.where(better, xi, best_xi)
-                best_l = torch.where(better, loss, best_l)
-                t = float(i + 1)
-                mu = b1 * mu + (1.0 - b1) * g
-                nu = b2 * nu + (1.0 - b2) * g * g
-                lr_t = lr * (1.0 / 30.0) ** (t / float(n_steps))
-                xi = xi - lr_t * (mu / (1.0 - b1 ** t)) / (torch.sqrt(nu / (1.0 - b2 ** t))
-                                                           + eps)
-        return apply_pose_delta(viewmat, best_xi)
+        return align_pose(
+            lambda vm: self._render_raw(params, masked_op, vm, K, sh_degree, width, height),
+            viewmat, gt, cfg.val_pose_align_steps, cfg.val_pose_align_lr, lr_decay=1.0 / 30.0,
+            b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps)
 
     def validate(self, state, gather_batch, val_idx, sh_degree, width, height):
         """Mean L1, SSIM and PSNR of the held-out views (and the PSNR after

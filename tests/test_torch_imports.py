@@ -29,10 +29,49 @@ def _imported_modules(path):
             yield node.module
 
 
+def _forbidden(path):
+    return [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    bad = _forbidden(path)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_imports_inside_functions(tmp_path):
+    """The guard reads every import of a module, also the lazy ones inside
+    functions and methods: the processor with its native import left
+    unrenamed is caught."""
+    src = (ROOT / "gaussian_splatting_tpu_torch" / "video" / "processor.py").read_text()
+    lazy = "from gaussian_splatting_tpu_torch.utils.native import radius_dedupe"
+    assert lazy in src
+    path = tmp_path / "processor.py"
+    path.write_text(src.replace(lazy, lazy.replace("_tpu_torch.", "_tpu.")))
+    assert _forbidden(path) == ["gaussian_splatting_tpu.utils.native"]
+
+
+def test_video_modules_and_clis_are_guarded():
+    names = {str(p.relative_to(ROOT / "gaussian_splatting_tpu_torch")) for p in PORT_FILES
+             if "gaussian_splatting_tpu_torch" in p.parts}
+    assert {"train_cli.py", "eval_cli.py", "video/__init__.py", "video/loader.py",
+            "video/calibrate.py", "video/sfm.py", "video/align.py", "video/correspond.py",
+            "video/processor.py"} <= names
+
+
+def test_eval_load_model_imports_without_opencv(tmp_path):
+    """``eval_cli.load_model`` reads a checkpoint with OpenCV unimportable:
+    the CLI keeps its video imports inside ``main``."""
+    code = ("import sys; sys.modules['cv2'] = None; "
+            "from gaussian_splatting_tpu_torch.eval_cli import load_model; "
+            f"g, m = load_model({_checkpoint(tmp_path)!r}, device='cpu'); "
+            "assert not [k for k, v in sys.modules.items() if k == 'cv2' and v is not None]; "
+            "print(g.capacity)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["3"]
 
 
 def _arrays(n=3):
@@ -82,6 +121,7 @@ def _entry_points(tmp_path):
     from gaussian_splatting_tpu_torch.models.gaussians import init_from_points, init_random
     from gaussian_splatting_tpu_torch.training.checkpoint import load_reference_pth
     from gaussian_splatting_tpu_torch.training.trainer import GaussianTrainer
+    from gaussian_splatting_tpu_torch import eval_cli, train_cli
 
     a = _arrays()
     sh = np.concatenate([a["features_dc"], a["features_rest"]], 1)
@@ -109,6 +149,13 @@ def _entry_points(tmp_path):
         "init_random": lambda: init_random(10),
         "init_from_points": lambda: init_from_points(np.zeros((4, 3), np.float32), None, 4),
         "load_reference_pth": lambda: load_reference_pth(_pth(tmp_path)),
+        # The CLIs name the device before reading any video.
+        "train_cli.main": lambda: train_cli.main(["--videos", str(tmp_path / "none.mp4"),
+                                                  "--output", str(tmp_path / "run")]),
+        "eval_cli.main": lambda: eval_cli.main(["--model", _checkpoint(tmp_path), "--videos",
+                                                str(tmp_path / "none.mp4"), "--output",
+                                                str(tmp_path / "eval")]),
+        "eval_cli.load_model": lambda: eval_cli.load_model(_checkpoint(tmp_path)),
     }
 
 
@@ -117,7 +164,8 @@ def _entry_points(tmp_path):
                                   "make_intrinsics", "make_train_step",
                                   "train_state_from_numpy", "save_checkpoint",
                                   "pose_state_init", "render_grad_meta", "GaussianTrainer",
-                                  "init_random", "init_from_points", "load_reference_pth"])
+                                  "init_random", "init_from_points", "load_reference_pth",
+                                  "train_cli.main", "eval_cli.main", "eval_cli.load_model"])
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = _entry_points(tmp_path)[name]
