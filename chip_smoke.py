@@ -113,11 +113,32 @@ Phases (any failure exits nonzero and prints no result):
    PSNR not below the raw one, the checkpoint's budgets in the eval's
    render settings, the five kernels launched in each CLI; the stage
    times, the budget drops at each log (reported, not gated: the CLI starts
-   at opacity 0.005) and the peak memory.
+   at opacity 0.005) and the peak memory;
+10. the mesh (``mesh_phase``): min(card count, 4) ranks, 1 -> a 1x1 mesh in
+   this process, 2-3 -> 1x2, 4 -> 2x2 (one spawned process a card), over
+   NCCL (the backend and world size are printed). The sharded step
+   (``parallel.make_sharded_train_step``) at 1M gaussians, 1920x1080,
+   batch 4, backend auto, from phase 5's noisy state, 6 steps dense and 6
+   with the trainer's compact budgets, each in turns with
+   ``make_train_step`` from the same state: after step 1 the loss within
+   rtol 2e-6, L1 within rtol 1e-5, the four stats equal and the parameters
+   within 1e-5 under the sign-flip rule; losses falling, nothing
+   non-finite, no gradient entry dropped; each step's collectives counted,
+   the collectives' device time in one step (NCCL's device ranges,
+   ``torch.profiler``) and the kernels whose time differs most, the
+   median step times (CUDA events) and the peak memory of a step beside
+   the single-device step's; the five kernels of the path must launch in
+   the sharded steps. Then ``GaussianTrainer(cfg, mesh=...)`` for 20
+   iterations at 1M gaussians, batch 4, initial opacity 0.1, one densify
+   event (iteration 15), validation and the grad-buffer probe at 20:
+   falling finite losses, ``final.npz`` written once (by rank 0) and
+   reloading equal to the gathered state, the five kernels launched; its
+   median iteration time beside phase 8's.
 
 Output: the kernels JSON line (each row also with ``kernel_ms``, the
-kernel's profiler time, ``trainer_launches``, its launches in phase 8, and
-``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls),
+kernel's profiler time, ``trainer_launches``, its launches in phase 8,
+``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
+and ``mesh_launches``, in phase 10's sharded steps and trainer),
 the card's name and power limit (``nvidia-smi``), then ``{"ok": true,
 "device": {...}}`` as the last line.
 """
@@ -163,6 +184,14 @@ TRAINER_INIT_OPACITY = 0.1
 TRAINER_RESET_EVERY = TRAINER_ITERS
 # The trainer's rebudget threshold: budget drops above this share of n_isect.
 BUDGET_DROP_FRAC = 0.01
+# Phase 10, the mesh: MESH_STEPS sharded steps each dense and with the
+# trainer's compact budgets, beside make_train_step; the trainer on the mesh
+# for MESH_TRAINER_ITERS iterations with one densify event. Tolerances of
+# the sharded step against one device after step 1, as
+# tests/test_parallel.py:82-91 (loss, L1; parameters under the sign-flip
+# rule of tests/test_torch_training.py).
+MESH_STEPS, MESH_TRAINER_ITERS, MESH_DENSIFY_AT = 6, 20, 15
+MESH_LOSS_RTOL, MESH_L1_RTOL, MESH_PARAM_ATOL = 2e-6, 1e-5, 1e-5
 # The CLI journey (phase 9): tests/synthetic_video.py's clip at full size,
 # SfM at stride 4, the train CLI at 1M gaussians (max_gaussians >= 2M, so
 # n_init = min(max(3 x points, initial), max / 2) reaches it), batch 4, then
@@ -1028,6 +1057,32 @@ class _Timed:
         return self._event("final save + export", super()._save_final, *a)
 
 
+def trainer_inputs(dev, scene, raster):
+    """The trainer phases' inputs: a ``ViewDataset`` of TRAINER_VIEWS views of
+    the clean scene rendered by the port, TRAINER_POINTS of its means (numpy
+    seed 3) with their colours, and n_init (the scene's size)."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.core.sh import sh0_to_rgb
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes(TRAINER_VIEWS)]
+    clean = state_from_numpy(scene, device=dev)
+    with torch.no_grad():
+        images = torch.stack([torch.clamp(raster.render_single(clean.params, vp).render, 0, 1)
+                              for vp in views])
+    dataset = view_dataset(views, images)
+    del clean, images
+    rng = np.random.default_rng(3)
+    pick = rng.choice(scene["means"].shape[0], TRAINER_POINTS, replace=False)
+    points = scene["means"][pick]
+    colors = np.clip(sh0_to_rgb(torch.as_tensor(scene["features_dc"][pick, 0])).numpy(), 0, 1)
+    return dataset, points, colors, max(3 * TRAINER_POINTS, scene["means"].shape[0])
+
+
 def trainer_phase(dev, scene, raster):
     """Phase 8: the port's trainer on the card through its entry point,
     ``GaussianTrainer(cfg, device).train(dataset, out_dir, points, colors)``:
@@ -1051,9 +1106,6 @@ def trainer_phase(dev, scene, raster):
 
     import torch
 
-    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
-    from gaussian_splatting_tpu_torch.core.sh import sh0_to_rgb
-    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
     from gaussian_splatting_tpu_torch.training.checkpoint import load_checkpoint
     from gaussian_splatting_tpu_torch.training.config import TrainingConfig
     from gaussian_splatting_tpu_torch.training.export import read_ply
@@ -1064,21 +1116,8 @@ def trainer_phase(dev, scene, raster):
 
     TimedLogger = _timed_logger_class()
 
-    n_views, n_points, iters = TRAINER_VIEWS, TRAINER_POINTS, TRAINER_ITERS
-    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
-    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
-             for e in view_eyes(n_views)]
-    clean = state_from_numpy(scene, device=dev)
-    with torch.no_grad():
-        images = torch.stack([torch.clamp(raster.render_single(clean.params, vp).render, 0, 1)
-                              for vp in views])
-    dataset = view_dataset(views, images)
-    del clean, images
-    rng = np.random.default_rng(3)
-    pick = rng.choice(scene["means"].shape[0], n_points, replace=False)
-    points = scene["means"][pick]
-    colors = np.clip(sh0_to_rgb(torch.as_tensor(scene["features_dc"][pick, 0])).numpy(), 0, 1)
-    n_init = max(3 * n_points, scene["means"].shape[0])
+    n_points, iters = TRAINER_POINTS, TRAINER_ITERS
+    dataset, points, colors, n_init = trainer_inputs(dev, scene, raster)
     cfg = TrainingConfig(iterations=iters, batch_size=4, initial_gaussians=n_init,
                          init_opacity=TRAINER_INIT_OPACITY, max_gaussians=3 * n_init,
                          densify_from_iteration=10, densify_interval=10,
@@ -1198,6 +1237,445 @@ def trainer_phase(dev, scene, raster):
         fail(f"[trainer] a kernel of the trainer's path never launched: {launches}")
     return {"iter_ms": med, "periods": periods, "events": trainer.event_s, "launches": launches,
             "peak_gib": peak, "wall_s": wall, "losses": losses}
+
+
+def mesh_shape(n_cards):
+    """Phase 10's ("data", "model") mesh on ``n_cards`` cards: 1 -> 1x1,
+    2-3 -> 1x2, 4 or more -> 2x2."""
+    n = min(n_cards, 4)
+    return (2, 2) if n == 4 else (1, 2) if n >= 2 else (1, 1)
+
+
+class _HostEvent:
+    """``torch.cuda.Event`` on the host clock, for a rehearsal of phase 10's
+    spawned ranks on the CPU."""
+
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def _cpu_stand_ins():
+    import torch
+
+    torch.cuda.Event = _HostEvent
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
+
+
+def _step_ms(step, state, batch):
+    """One training step bracketed by CUDA events: (state, metrics, ms)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    state, m = step(state, batch)
+    b.record()
+    b.synchronize()
+    return state, m, a.elapsed_time(b)
+
+
+def _launch_delta(before):
+    return {k: v - before[k] for k, v in read_launches().items()}
+
+
+def _add(acc, delta):
+    return {k: acc.get(k, 0) + v for k, v in delta.items()}
+
+
+def _sign_flip_errors(got, want, lrs):
+    """Parameters after one Adam step under the sign-flip rule: per group,
+    (max |got - want| where |g| > 1e-3 of the group's largest gradient,
+    max |got - want| / (2 lr) everywhere), g from the reference's first
+    moment (mu = (1 - b1) g after one step from zero moments)."""
+    from gaussian_splatting_tpu_torch.models.gaussians import PARAM_KEYS
+
+    out = {}
+    for k in PARAM_KEYS:
+        g = getattr(want.opt.mu, k) / 0.1
+        big = g.abs() > 1e-3 * g.abs().max()
+        d = (getattr(got.gauss.params, k) - getattr(want.gauss.params, k)).abs()
+        out[k] = (float(d[big].max()) if bool(big.any()) else 0.0,
+                  float(d.max()) / (2.0 * float(lrs[k])))
+    return out
+
+
+def device_times(fn):
+    """Device time (ms) by kernel name of what ``fn()`` launches, from
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = (per_name.get(e.name, 0.0)
+                                + (e.time_range.end - e.time_range.start) / 1e3)
+    return per_name
+
+
+def mesh_steps(mesh, dev, scene, views, images, rank):
+    """Phase 10's steps: MESH_STEPS sharded steps dense, then with the
+    trainer's compact budgets for the starting state, each beside
+    ``make_train_step`` from the same state in turns (rank 0); after step 1
+    the loss, L1, stats and parameters held against it. Returns the
+    report."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.parallel import make_sharded_train_step
+    from gaussian_splatting_tpu_torch.parallel import sharded_step as ss
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.step import ViewBatch, make_train_step
+
+    batch = ViewBatch(images=images,
+                      viewmats=torch.stack([v["world_view_transform"] for v in views]),
+                      Ks=torch.stack([v["K"] for v in views]))
+    arrays = noisy_train_arrays(scene, seed=1)
+
+    def fresh():
+        return train_state_from_numpy({k: np.array(v) for k, v in arrays.items()}, device=dev)
+
+    budgets = batch_class_budgets(dev, fresh(), views, images)
+    rep = {"launches": {}}
+    for name, cfg in (("dense", TrainingConfig(backend="auto")),
+                      ("compact", TrainingConfig(backend="auto", class_budgets=budgets))):
+        single = make_train_step(cfg, WIDTH, HEIGHT, 3, cfg.backend, SCENE_EXTENT, device=dev)
+        sharded, band_h, h_pad = make_sharded_train_step(cfg, mesh, WIDTH, HEIGHT, 3,
+                                                         cfg.backend, SCENE_EXTENT)
+        s_state = fresh() if rank == 0 else None
+        m_state = ss.shard_state(fresh(), mesh)
+        r = {"single_ms": [], "mesh_ms": [], "single_loss": [], "mesh_loss": [],
+             "band_h": band_h, "h_pad": h_pad}
+        for i in range(MESH_STEPS):
+            if rank == 0:
+                if i == 2:
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                s_state, sm, ms = _step_ms(single, s_state, batch)
+                if i == 2:
+                    r["single_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+                    r["single_total_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                r["single_ms"].append(ms)
+                r["single_loss"].append(float(sm["loss"]))
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            before = read_launches()
+            ss.reset_collectives()
+            m_state, mm, ms = _step_ms(sharded, m_state, batch)
+            coll = ss.collectives()
+            rep["launches"] = _add(rep["launches"], _launch_delta(before))
+            if i == 2:
+                r["mesh_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+                r["mesh_total_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            r["mesh_ms"].append(ms)
+            r["mesh_loss"].append(float(mm["loss"]))
+            stats = {k: int(mm[f"stats/{k}"]) for k in
+                     ("n_isect", "n_dropped", "n_budget_dropped", "n_grad_dropped")}
+            if rank == 0:
+                log(f"[mesh {name}] step {i}: loss {r['mesh_loss'][-1]:.7f} (one device "
+                    f"{r['single_loss'][-1]:.7f}), l1 {float(mm['l1']):.6f}, stats {stats}, "
+                    f"{ms:.3f} ms (one device {r['single_ms'][-1]:.3f} ms)")
+            if not np.isfinite(r["mesh_loss"][-1]) or stats["n_grad_dropped"]:
+                fail(f"[mesh {name}] step {i}: loss not finite or gradient entries dropped")
+            budget_ok = (stats["n_budget_dropped"] == 0 if i == 0 else
+                         stats["n_budget_dropped"] <= BUDGET_DROP_FRAC * stats["n_isect"])
+            if not budget_ok:
+                fail(f"[mesh {name}] step {i}: budget drops {stats}")
+            if i == 0:
+                r["collectives"] = {f"{op}/{axis}": sum(1 for c in coll if c[:2] == (op, axis))
+                                    for op, axis in sorted({c[:2] for c in coll})}
+                full = ss.gather_state(m_state, mesh)
+                if rank == 0:
+                    lrs = {"means": float(sm["xyz_lr"]), "quats": cfg.lr_rotation,
+                           "log_scales": cfg.lr_scaling, "logit_opacities": cfg.lr_opacity,
+                           "features_dc": cfg.lr_features_dc,
+                           "features_rest": cfg.lr_features_rest}
+                    r["param_err"] = _sign_flip_errors(full, s_state, lrs)
+                    r["loss_rel"] = abs(float(mm["loss"]) - float(sm["loss"])) / abs(
+                        float(sm["loss"]))
+                    r["l1_rel"] = abs(float(mm["l1"]) - float(sm["l1"])) / abs(float(sm["l1"]))
+                    s_stats = {k: int(sm[f"stats/{k}"]) for k in stats}
+                    log(f"[mesh {name}] step 1 against one device: loss rel {r['loss_rel']:.3e}"
+                        f", l1 rel {r['l1_rel']:.3e}, stats {stats} vs {s_stats}, parameters "
+                        f"(max err where |g| is large, max err / 2 lr): "
+                        f"{ {k: (f'{a:.2e}', f'{b:.3f}') for k, (a, b) in r['param_err'].items()} }")
+                    if (abs(float(mm["loss"]) - float(sm["loss"]))
+                            > 1e-7 + MESH_LOSS_RTOL * abs(float(sm["loss"]))
+                            or abs(float(mm["l1"]) - float(sm["l1"]))
+                            > 1e-6 + MESH_L1_RTOL * abs(float(sm["l1"]))
+                            or stats != s_stats
+                            or any(a >= MESH_PARAM_ATOL or b > 1 + 1e-4
+                                   for a, b in r["param_err"].values())):
+                        fail(f"[mesh {name}] the sharded step disagrees with make_train_step")
+                del full
+        for who in ("mesh", "single") if rank == 0 else ("mesh",):
+            losses = r[f"{who}_loss"]
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                fail(f"[mesh {name}] {who} losses not falling: {losses}")
+        if name == "dense":
+            # One step of each under the profiler: the collectives' time
+            # and the kernels whose time differs most between the two.
+            mt = device_times(lambda: sharded(m_state, batch))
+            # "nccl:<op>" is a device range around each collective's work
+            # (NCCL's kernels, or a copy with one rank): it overlaps that
+            # work, so the busy time leaves it out.
+            r["nccl_ms"] = {k: v for k, v in mt.items() if k.startswith("nccl:")}
+            mt = {k: v for k, v in mt.items() if not k.startswith("nccl:")}
+            r["busy_ms"] = sum(mt.values())
+            if rank == 0:
+                st = device_times(lambda: single(s_state, batch))
+                r["single_busy_ms"] = sum(st.values())
+                diff = {k: mt.get(k, 0.0) - st.get(k, 0.0) for k in set(mt) | set(st)}
+                r["kernel_diff_ms"] = dict(sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:12])
+        rep[name] = r
+        del s_state, m_state, single, sharded
+        torch.cuda.empty_cache()
+    rep["budgets"] = budgets
+    return rep
+
+
+def mesh_trainer(mesh, dev, inputs, out_dir, rank):
+    """Phase 10's trainer: ``GaussianTrainer(cfg, mesh=mesh).train`` for
+    MESH_TRAINER_ITERS iterations at 1M gaussians, 1080p, batch 4, initial
+    opacity TRAINER_INIT_OPACITY, one densify event (at MESH_DENSIFY_AT),
+    validation and the grad-buffer probe at the end, into ``out_dir`` (the
+    same on every rank); ``save_checkpoint`` counted on each rank."""
+    import dataclasses
+
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_to_numpy
+    from gaussian_splatting_tpu_torch.training import trainer as trainer_mod
+    from gaussian_splatting_tpu_torch.training.checkpoint import load_checkpoint
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+
+    class Trainer(_Timed, trainer_mod.GaussianTrainer):
+        pass
+
+    dataset, points, colors, n_init = inputs
+    iters = MESH_TRAINER_ITERS
+    cfg = TrainingConfig(iterations=iters, batch_size=4, initial_gaussians=n_init,
+                         init_opacity=TRAINER_INIT_OPACITY, max_gaussians=3 * n_init,
+                         densify_from_iteration=MESH_DENSIFY_AT - 1,
+                         densify_interval=MESH_DENSIFY_AT, densify_topk_fraction=0.02,
+                         opacity_reset_interval=TRAINER_RESET_EVERY, val_interval=iters,
+                         grad_buffer_frac=0.9, log_scalar_interval=2, log_hist_interval=iters,
+                         log_image_interval=0, checkpoint_interval=10 * iters)
+    saves = []
+    save = trainer_mod.save_checkpoint
+
+    def counted(path, *a, **k):
+        saves.append(path.rsplit("/", 1)[-1])
+        return save(path, *a, **k)
+
+    logger = _timed_logger_class()(out_dir, config=dataclasses.asdict(cfg)) if rank == 0 else None
+    trainer = Trainer(cfg, logger=logger, mesh=mesh)
+    trainer.step_events, trainer.event_s = [], {}
+    if logger is not None:
+        logger.event_s = trainer.event_s
+    trainer_mod.save_checkpoint = counted
+    try:
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        state = trainer.train(dataset, out_dir, points=points, colors=colors)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_delta(before)
+    finally:
+        trainer_mod.save_checkpoint = save
+    ends = trainer.step_events
+    periods = [ends[i].elapsed_time(ends[i + 1]) for i in range(len(ends) - 1)]
+    # Period i holds iteration i + 1 (1-based) and its events.
+    plain = [p for i, p in enumerate(periods) if i + 1 not in (1, MESH_DENSIFY_AT, iters)]
+    rep = {"launches": launches, "saves": saves, "wall_s": wall, "periods": periods,
+           "iter_ms": statistics.median(plain) if plain else float("nan"),
+           "capacity": state.gauss.capacity, "n_alive": int(state.gauss.n_alive()),
+           "events": trainer.event_s}
+    if rank == 0:
+        import json as _json
+
+        with open(f"{out_dir}/metrics.jsonl") as f:
+            recs = [_json.loads(line) for line in f]
+        rep["losses"] = [r["loss"] for r in recs if "loss" in r]
+        rep["densify"] = [r["densify/n_after"] for r in recs if "densify/n_after" in r]
+        loaded, _ = load_checkpoint(f"{out_dir}/final.npz", device=dev)
+        a, b = train_state_to_numpy(state), train_state_to_numpy(loaded)
+        rep["reload_equal"] = set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    return rep
+
+
+def mesh_rank(rank, world, port, device_type, shape, scene, views_np, images_np, inputs,
+              out_dir):
+    """Phase 10 on one rank: the process group (NCCL on the card, gloo on
+    the CPU), the mesh, ``mesh_steps`` and ``mesh_trainer``. Returns the
+    report (rank 0's is the phase's)."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatting_tpu_torch.parallel import init_multihost, make_mesh
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    if world > 1:
+        os.environ["LOCAL_RANK"] = str(rank)
+        init_multihost(f"localhost:{port}", world, rank, device=dev,
+                       timeout=datetime.timedelta(seconds=300))
+    mesh = make_mesh(*shape, device=dev)
+    try:
+        backend = dist.get_backend()
+        if rank == 0:
+            log(f"[mesh] {shape[0]}x{shape[1]} mesh, world {world}, over {backend} on "
+                f"{[str(torch.device(device_type, r)) for r in range(world)]}")
+        if device_type == "cuda" and backend != "nccl":
+            fail(f"[mesh] the process group runs over {backend}, not NCCL")
+        views = [{"world_view_transform": torch.as_tensor(v, device=dev),
+                  "K": torch.as_tensor(K, device=dev)} for v, K in views_np]
+        images = torch.as_tensor(images_np, device=dev)
+        rep = mesh_steps(mesh, dev, scene, views, images, rank)
+        del views, images
+        torch.cuda.empty_cache()
+        rep["trainer"] = mesh_trainer(mesh, dev, inputs, out_dir, rank)
+        rep.update(shape=shape, world=world, backend=backend)
+        return rep
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank_entry(rank, world, port, device_type, shape, out_dir, args):
+    import pickle
+
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    if device_type == "cpu":
+        _cpu_stand_ins()
+    else:
+        _build.build(KERNELS)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rep = mesh_rank(rank, world, port, device_type, shape, *args, out_dir)
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(rep, f)
+
+
+def mesh_phase(dev, scene, views, images, inputs, trainer_iter_ms, n_cards=None):
+    """Phase 10: the mesh (``mesh_shape`` of ``n_cards``, the card count
+    unless given): one rank in this process, or one spawned process a card.
+    Checks and logs; returns rank 0's report."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch
+
+    n = n_cards if n_cards is not None else torch.cuda.device_count()
+    shape = mesh_shape(n)
+    world = shape[0] * shape[1]
+    views_np = [(v["world_view_transform"].cpu().numpy(), v["K"].cpu().numpy()) for v in views]
+    with tempfile.TemporaryDirectory() as td:
+        args = (scene, views_np, images.cpu().numpy(), inputs)
+        if world == 1:
+            rep = mesh_rank(0, 1, None, dev.type, shape, *args, td)
+        else:
+            import torch.multiprocessing as mp
+
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            mp.start_processes(_mesh_rank_entry, args=(world, port, dev.type, shape, td, args),
+                               nprocs=world, start_method="spawn")
+            reps = []
+            for r in range(world):
+                with open(f"{td}/rank{r}.pkl", "rb") as f:
+                    reps.append(pickle.load(f))
+            rep = reps[0]
+            rep["launches"] = {k: sum(x["launches"][k] for x in reps) for k in rep["launches"]}
+            rep["trainer"]["saves_by_rank"] = [x["trainer"]["saves"] for x in reps]
+    tr = rep["trainer"]
+    saves_by_rank = tr.get("saves_by_rank", [tr["saves"]])
+    launches = {k: rep["launches"][k] + tr["launches"][k] for k in rep["launches"]}
+    for name in ("dense", "compact"):
+        r = rep[name]
+        log(f"[mesh {name}] median step (CUDA events, steps 1-{MESH_STEPS - 1}): sharded "
+            f"{statistics.median(r['mesh_ms'][1:]):.3f} ms, one device "
+            f"{statistics.median(r['single_ms'][1:]):.3f} ms ({[round(x, 3) for x in r['mesh_ms']]}"
+            f" vs {[round(x, 3) for x in r['single_ms']]}); peak device memory above the "
+            f"state during one step: sharded {r['mesh_peak_gib']:.3f} GiB, one device "
+            f"{r['single_peak_gib']:.3f} GiB (totals {r['mesh_total_gib']:.3f} / "
+            f"{r['single_total_gib']:.3f}); band_h {r['band_h']}, h_pad {r['h_pad']}; "
+            f"collectives a step {r['collectives']}")
+    d = rep["dense"]
+    log(f"[mesh dense] one sharded step under torch.profiler: device time {d['busy_ms']:.3f} "
+        f"ms (one device {d['single_busy_ms']:.3f}), NCCL {sum(d['nccl_ms'].values()):.3f} ms "
+        f"(with more than one rank this includes the wait for the others): "
+        f"{ {k[:60]: round(v, 4) for k, v in d['nccl_ms'].items()} }; kernels whose time "
+        f"differs most, sharded - one device (ms): "
+        f"{[(k[:160], round(v, 3)) for k, v in d['kernel_diff_ms'].items()]}")
+    log(f"[mesh trainer] {MESH_TRAINER_ITERS} iterations on the {shape[0]}x{shape[1]} mesh: "
+        f"wall {tr['wall_s']:.2f} s, median iteration {tr['iter_ms']:.3f} ms (phase 8, one "
+        f"device: {trainer_iter_ms:.3f} ms; all: {[round(x, 1) for x in tr['periods']]}); "
+        f"losses {[round(x, 5) for x in tr['losses']]}; densify n_after {tr['densify']}; "
+        f"capacity {tr['capacity']}, alive {tr['n_alive']}; saves by rank {saves_by_rank}; "
+        f"final.npz reloads equal to the gathered state: {tr['reload_equal']}; events "
+        f"{ {k: [round(x * 1e3, 1) for x in v] for k, v in tr['events'].items()} } ms")
+    log(f"[mesh] launches: sharded steps {rep['launches']}, trainer {tr['launches']}")
+    losses = tr["losses"]
+    if not (losses and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"[mesh trainer] losses not finite or not falling: {losses}")
+    if len(tr["densify"]) != 1 or not tr["reload_equal"]:
+        fail("[mesh trainer] no densify event, or final.npz differs from the gathered state")
+    if saves_by_rank[0] != ["final.npz"] or any(saves_by_rank[1:]):
+        fail(f"[mesh trainer] files not written once by rank 0: {saves_by_rank}")
+    for what, counts in (("sharded steps", rep["launches"]), ("trainer", tr["launches"])):
+        if min(counts[k] for k in KERNELS[:5]) < 1:
+            fail(f"[mesh] a kernel of the training path never launched in the {what}: {counts}")
+    rep["all_launches"] = launches
+    return rep
+
+
+def mesh_alone():
+    """Phase 10 alone on the card, after the build and the render phase it
+    takes its images from: ``python -c "import chip_smoke; chip_smoke.mesh_alone()"``
+    from the repository root (one card, or up to four for a 1x2 or 2x2
+    mesh). Phase 8's time is not measured in this run."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    raster, images, _ = render_phase(dev, state_from_numpy(scene, device=dev), views)
+    rep = mesh_phase(dev, scene, views, images, trainer_inputs(dev, scene, raster),
+                     float("nan"))
+    log(f"[mesh] phase 10 alone: launches {rep['all_launches']}")
 
 
 def _cli_call(main, argv, records):
@@ -2350,6 +2828,9 @@ def run(dev):
     tr = trainer_phase(dev, scene, raster)
     # 9. The user journey through the two CLIs; their launches too.
     cli = cli_phase(dev)
+    # 10. The mesh: the sharded step and the trainer on it.
+    mesh = mesh_phase(dev, scene, views, images, trainer_inputs(dev, scene, raster),
+                      tr["iter_ms"])
 
     def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms, **extra):
         return {"name": name, "route": "cuda",
@@ -2359,7 +2840,8 @@ def run(dev):
                 "library_ms": lib_ms, "kernel_ms": k_ms[name],
                 "trainer_launches": tr["launches"][name],
                 "train_cli_launches": cli["train_launches"][name],
-                "eval_cli_launches": cli["eval_launches"][name], **extra}
+                "eval_cli_launches": cli["eval_launches"][name],
+                "mesh_launches": mesh["all_launches"][name], **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

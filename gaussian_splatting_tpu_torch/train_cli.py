@@ -5,18 +5,34 @@ Usage:
   python -m gaussian_splatting_tpu_torch.train_cli --videos a.mp4 [b.mp4 ...] \
       --output runs/exp1 [--iterations N] [--resume ckpt.npz] [--device cpu] ...
 
+On a mesh of D x M devices, one process a device:
+  torchrun --nproc-per-node=D*M -m gaussian_splatting_tpu_torch.train_cli \
+      --mesh-data D --mesh-model M --videos a.mp4 --output runs/exp1 ...
+
 ``--backend`` takes the port's names (``auto`` = ``cuda``, ``cuda``, ``ref``)
 and ``--device`` (default ``cuda``) names the device the trainer runs on;
-without CUDA a run raises unless it asks for the CPU. ``--multihost`` and a
-mesh (``--mesh-data`` x ``--mesh-model`` > 1) raise ``NotImplementedError``
-(ROADMAP queue 1, item 7). The JAX package's persistent compile cache
-(``utils/cache.enable_compile_cache``) has no counterpart: the port's kernels
-are built once by ``ops/_build.py``.
+without CUDA a run raises unless it asks for the CPU.
+
+A mesh (``--mesh-data`` x ``--mesh-model`` > 1) trains through
+``parallel/sharded_step.py``. The JAX package drives a mesh from one
+process; PyTorch needs one process a device, so such a run starts under
+``torchrun --nproc-per-node=D*M`` (the CLI initializes the process group
+from torchrun's variables) or, across hosts, with ``--multihost`` on each
+host (``parallel.init_multihost``: ``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES``, ``PROCESS_ID``, or torchrun's variables). A world whose
+size is not D x M raises. Rank 0 alone runs SfM and broadcasts its result
+to the other ranks, so every rank trains on the same points and poses
+without a shared cache directory; rank 0 alone writes the output.
+
+The JAX package's persistent compile cache (``utils/cache.
+enable_compile_cache``) has no counterpart: the port's kernels are built
+once by ``ops/_build.py``.
 """
 
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 
 import numpy as np
@@ -63,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-model", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported yet: raises)")
+                   help="multi-host training: initialize the process group from "
+                        "COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID (or torchrun's "
+                        "variables) before any device use")
     p.add_argument("--wandb-mode", default=None)
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--wandb-run-name", default=None)
@@ -140,8 +158,6 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.multihost or cfg.mesh_data * cfg.mesh_tile > 1:
-        raise NotImplementedError("multi-host and mesh training: ROADMAP queue 1, item 7")
 
     from gaussian_splatting_tpu_torch._device import resolve_device
     from gaussian_splatting_tpu_torch.training.trainer import GaussianTrainer
@@ -149,13 +165,23 @@ def main(argv=None) -> int:
     from gaussian_splatting_tpu_torch.video.processor import MultiVideoProcessor
 
     device = resolve_device(args.device)  # before SfM: a missing card fails at once
-    proc = MultiVideoProcessor(
-        cache_dir=cfg.cache_dir, matcher=cfg.matcher,
-        focal_px=args.focal_px, focal_35mm=args.focal_35mm,
-    )
-    merged = proc.process_videos(
-        args.videos, stride=cfg.frame_stride, use_cache=args.use_sfm_cache
-    )
+    mesh = make_cli_mesh(cfg, args.multihost, device)
+    is_main = mesh is None or mesh.rank == 0
+    merged = None
+    if is_main:
+        proc = MultiVideoProcessor(
+            cache_dir=cfg.cache_dir, matcher=cfg.matcher,
+            focal_px=args.focal_px, focal_35mm=args.focal_35mm,
+        )
+        merged = proc.process_videos(
+            args.videos, stride=cfg.frame_stride, use_cache=args.use_sfm_cache
+        )
+    if mesh is not None:
+        import torch.distributed as dist
+
+        box = [merged]
+        dist.broadcast_object_list(box, src=0)
+        merged = box[0]
     dataset = build_dataset(merged, image_scale=cfg.image_scale)
 
     logger = MetricsLogger(
@@ -163,16 +189,40 @@ def main(argv=None) -> int:
         wandb_mode=cfg.wandb_mode, wandb_project=cfg.wandb_project,
         wandb_entity=cfg.wandb_entity, wandb_run_name=cfg.wandb_run_name,
         wandb_tags=cfg.wandb_tags,
-    )
-    trainer = GaussianTrainer(cfg, logger=logger, device=device)
+    ) if is_main else None
+    trainer = GaussianTrainer(cfg, logger=logger, device=device, mesh=mesh)
     trainer.train(
         dataset, args.output,
         points=np.asarray(merged["points_3d"]),
         colors=np.asarray(merged["colors"]),
         resume_from=args.resume,
     )
-    logger.finish()
+    if logger is not None:
+        logger.finish()
     return 0
+
+
+def make_cli_mesh(cfg, multihost: bool, device):
+    """The run's mesh, or None on one device. With ``multihost``, or a mesh
+    above 1 x 1 under torchrun, the process group is initialized first
+    (``parallel.init_multihost``). Raises when the world does not hold
+    exactly mesh_data x mesh_tile processes."""
+    n = cfg.mesh_data * cfg.mesh_tile
+    if not multihost and n == 1:
+        return None
+    import torch.distributed as dist
+
+    from gaussian_splatting_tpu_torch.parallel.mesh import init_multihost, make_mesh
+
+    if not dist.is_initialized() and (multihost or "WORLD_SIZE" in os.environ):
+        init_multihost(device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"a {cfg.mesh_data}x{cfg.mesh_tile} mesh runs one process a device, {n} in all, "
+            f"and this run has {world}: start it with torchrun --nproc-per-node={n} "
+            f"(or --multihost on each host)")
+    return make_mesh(cfg.mesh_data, cfg.mesh_tile, device=device)
 
 
 if __name__ == "__main__":

@@ -4,10 +4,11 @@ name and default, so a configuration means the same in both packages.
 
 ``backend`` takes the port's names: ``auto`` (= ``cuda``), ``cuda`` or
 ``ref``. The binning modes the port has not ported yet (``sort_depth_bits``,
-``sort_bands``) raise ``NotImplementedError`` where a render reads them, and
-so does a mesh (``mesh_data * mesh_tile > 1``) in the trainer. The video
-fields (``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) and
-``eval_num_views`` are read by the CLIs, which later slices port."""
+``sort_bands``) raise ``NotImplementedError`` where a render reads them. A
+mesh (``mesh_data * mesh_tile > 1``) trains through
+``parallel/sharded_step.py``, one process a device. The video fields
+(``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) are read by
+the train CLI and ``eval_num_views`` by the eval CLI."""
 
 import dataclasses
 from typing import List, Optional
@@ -15,7 +16,7 @@ from typing import List, Optional
 
 @dataclasses.dataclass
 class TrainingConfig:
-    # --- video processing (read by the CLIs of a later slice) ---
+    # --- video processing (read by the train CLI) ---
     frame_stride: int = 30
     image_scale: float = 1.0
     cache_dir: str = "./cache"
@@ -121,8 +122,8 @@ class TrainingConfig:
     # place either way.
     donate_step_buffers: bool = True
 
-    # --- parallelism (ROADMAP queue 1, item 7: the trainer raises for a
-    # mesh) ---
+    # --- parallelism: a (mesh_data x mesh_tile) mesh of ranks, views over
+    # "data", gaussians and image bands over "model" (parallel/) ---
     mesh_data: int = 1
     mesh_tile: int = 1
 
@@ -143,7 +144,7 @@ class TrainingConfig:
     wandb_run_name: Optional[str] = None
     wandb_tags: Optional[List[str]] = None
 
-    # --- eval (read by the eval CLI of a later slice) ---
+    # --- eval (read by the eval CLI) ---
     eval_num_views: int = 12
 
     def replace(self, **kw):

@@ -26,6 +26,11 @@ def _avg_pool3(img: torch.Tensor) -> torch.Tensor:
 def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """The reference's SSIM variant with 3x3 average-pool local statistics.
     imgs: (H, W, C) in [0, 1]. Returns the scalar mean."""
+    return ssim_map(img1, img2).mean()
+
+
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """The (H, W, C) SSIM map of ``ssim``."""
     C1, C2 = 0.01**2, 0.03**2
     mu1 = _avg_pool3(img1)
     mu2 = _avg_pool3(img2)
@@ -33,9 +38,8 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     sigma1_sq = _avg_pool3(img1 * img1) - mu1_sq
     sigma2_sq = _avg_pool3(img2 * img2) - mu2_sq
     sigma12 = _avg_pool3(img1 * img2) - mu1_mu2
-    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
+    return ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
-    return ssim_map.mean()
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -72,11 +76,14 @@ def photometric_loss(rendered: torch.Tensor, gt: torch.Tensor, lambda_dssim: flo
 
 
 def scale_ratio_reg(log_scales: torch.Tensor, alive: torch.Tensor, max_ratio: float,
-                    weight: float) -> torch.Tensor:
+                    weight: float, n_alive=None) -> torch.Tensor:
     """Anisotropy hinge: penalize a max/min scale ratio above ``max_ratio``,
-    averaged over the alive gaussians."""
+    averaged over the alive gaussians. ``n_alive`` replaces the count of
+    ``alive`` as the divisor: on a shard of the gaussians, the global count
+    makes the shards' values add up to the global mean."""
     scales = scale_activation(log_scales)
     ratio = scales.amax(-1) / torch.clamp_min(scales.amin(-1), 1e-8)
     hinge = torch.clamp_min(ratio, max_ratio) - max_ratio
     alive_f = alive.to(log_scales.dtype)
-    return weight * (hinge * alive_f).sum() / torch.clamp_min(alive_f.sum(), 1.0)
+    n = alive_f.sum() if n_alive is None else n_alive
+    return weight * (hinge * alive_f).sum() / torch.clamp_min(n, 1.0)

@@ -15,8 +15,18 @@ Division of labor, as in the JAX package:
 
 Backends: ``auto`` and ``cuda`` run the kernels (compact binning chosen by
 the trainer unless ``binning="dense"``), ``ref`` the PyTorch oracle. The
-trainer runs on CUDA unless ``device`` names another device. A mesh
-(``mesh_data * mesh_tile > 1``) is not ported yet and raises.
+trainer runs on CUDA unless ``device`` names another device.
+
+On a mesh (``mesh_data * mesh_tile > 1``, or a ``mesh`` the caller passes,
+of any size; one process a rank, ``parallel/mesh.py``) every step is
+``parallel/sharded_step.py``'s and the state lives as ZeRO shards between
+steps. Each host-cadenced event that reads or changes the population
+(densify, capacity growth, the budget and tile-cap re-measurements, the
+grad-buffer probe, histograms, validation, checkpoints and the final
+export) runs on the gathered state identically on every rank, with the same
+seeds and generators, and densify re-shards its result; the opacity reset
+is elementwise and runs on the shards. Only global rank 0 writes files and
+logs.
 """
 
 from __future__ import annotations
@@ -54,7 +64,7 @@ from gaussian_splatting_tpu_torch.training.step import (
     make_train_step,
     pose_state_init,
 )
-from gaussian_splatting_tpu_torch.utils.metrics import MetricsLogger
+from gaussian_splatting_tpu_torch.utils.metrics import MetricsLogger, NullLogger
 
 log = logging.getLogger(__name__)
 
@@ -152,11 +162,16 @@ def _pad_moments(moments: GaussianParams, params: GaussianParams) -> GaussianPar
 
 
 class GaussianTrainer:
+    """``mesh`` (``parallel.make_mesh``), when given, is the mesh to train on
+    and its device the rank's; without it the trainer builds one from
+    ``mesh_data`` x ``mesh_tile`` when that is above 1."""
+
     def __init__(self, config: TrainingConfig, logger: Optional[MetricsLogger] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.config = config
         self.logger = logger
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.backend = resolve_backend(config.backend)
         self._cum = {"cloned": 0, "split": 0, "pruned": 0, "events": 0}
         self._overflow_strikes = 0
@@ -264,7 +279,36 @@ class GaussianTrainer:
 
     # ---- events (methods, so a caller can time them) ----------------------
 
+    @property
+    def _is_main(self) -> bool:
+        """Whether this process writes files: always without a mesh, on
+        global rank 0 with one."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _full(self, state: TrainState) -> TrainState:
+        """The whole state from this rank's shards (a collective: every rank
+        calls it at the same point); without a mesh the state itself."""
+        if self.mesh is None:
+            return state
+        from gaussian_splatting_tpu_torch.parallel.sharded_step import gather_state
+
+        return gather_state(state, self.mesh)
+
+    def _shard(self, state: TrainState) -> TrainState:
+        if self.mesh is None:
+            return state
+        from gaussian_splatting_tpu_torch.parallel.sharded_step import shard_state
+
+        return shard_state(state, self.mesh)
+
     def _make_step(self, sh_degree: int, width: int, height: int, extent: float):
+        if self.mesh is not None:
+            from gaussian_splatting_tpu_torch.parallel.sharded_step import (
+                make_sharded_train_step,
+            )
+
+            return make_sharded_train_step(self.config, self.mesh, width, height, sh_degree,
+                                           self.backend, extent)[0]
         return make_train_step(self.config, width, height, sh_degree, self.backend, extent,
                                device=self.device)
 
@@ -277,7 +321,8 @@ class GaussianTrainer:
                       int(cfg.max_gaussians))
         new_cap = ((new_cap + 2047) // 2048) * 2048
         ck = out / "pre_growth.npz"
-        save_checkpoint(str(ck), state, extra=self._render_meta(extent))
+        if self._is_main:
+            save_checkpoint(str(ck), state, extra=self._render_meta(extent))
         log.info("growing capacity %d -> %d (pre-growth checkpoint: %s)",
                  state.gauss.capacity, new_cap, ck)
         gauss = grow_capacity(state.gauss, new_cap)
@@ -313,6 +358,8 @@ class GaussianTrainer:
                           iteration=state.iteration, poses=state.poses)
 
     def _save_final(self, state: TrainState, out: Path, extent: float) -> int:
+        if not self._is_main:
+            return int(state.gauss.n_alive())
         save_checkpoint(str(out / "final.npz"), state, extra=self._render_meta(extent))
         n = export_state_ply(state.gauss, str(out / "final.ply"))
         log.info("final export: %d gaussians", n)
@@ -326,11 +373,21 @@ class GaussianTrainer:
               colors: Optional[np.ndarray] = None,
               resume_from: Optional[str] = None) -> TrainState:
         cfg = self.config
+        if self.mesh is None and cfg.mesh_data * cfg.mesh_tile > 1:
+            from gaussian_splatting_tpu_torch.parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(data=cfg.mesh_data, model=cfg.mesh_tile, device=self.device)
+            self.device = self.mesh.device
+        if self.mesh is not None:
+            log.info("training on mesh %s", self.mesh.shape)
+            if cfg.batch_size % self.mesh.shape["data"] != 0:
+                raise ValueError("batch_size must divide mesh_data")
         dev = self.device
-        if cfg.mesh_data * cfg.mesh_tile > 1:
-            raise NotImplementedError("training on a mesh: ROADMAP queue 1, item 7")
         out = Path(output_dir)
-        out.mkdir(parents=True, exist_ok=True)
+        if not self._is_main:
+            self.logger = NullLogger()
+        else:
+            out.mkdir(parents=True, exist_ok=True)
         if self.logger is None:
             self.logger = MetricsLogger(
                 str(out), config=dataclasses.asdict(cfg), wandb_mode=cfg.wandb_mode,
@@ -396,7 +453,10 @@ class GaussianTrainer:
                      state.gauss.capacity * cfg.max_tiles_per_gaussian)
             cfg = self.config = cfg.replace(class_budgets=budgets)
 
-        if points_f is not None and len(points_f) > 0 and not resume_from:
+        # ZeRO placement on a mesh: each rank keeps its rows from here on.
+        state = self._shard(state)
+
+        if points_f is not None and len(points_f) > 0 and not resume_from and self._is_main:
             try:
                 self.debug_reprojection(points_f, dataset.viewmats[0], dataset.Ks[0],
                                         dataset.images[0], str(out / "debug_reproj.png"))
@@ -458,17 +518,29 @@ class GaussianTrainer:
             state, metrics = step(state, batch)
             it += 1
             window_iters += 1
+            # The whole state, gathered on a mesh at the first event that
+            # reads it this iteration (every rank reaches the same events).
+            whole = None
+
+            def full():
+                nonlocal whole
+                if whole is None:
+                    whole = self._full(state)
+                return whole
 
             # Densify / prune, growing the buffers first when nearly full.
             if it > cfg.densify_from_iteration and it % cfg.densify_interval == 0:
-                if (int(state.gauss.n_alive()) > 0.85 * state.gauss.capacity
-                        and state.gauss.capacity < cfg.max_gaussians):
-                    state = self._grow(state, out, extent)
-                state = self._densify(state, extent, it)
+                whole = full()
+                if (int(whole.gauss.n_alive()) > 0.85 * whole.gauss.capacity
+                        and whole.gauss.capacity < cfg.max_gaussians):
+                    whole = self._grow(whole, out, extent)
+                whole = self._densify(whole, extent, it)
+                state = self._shard(whole)
 
-            # Opacity reset.
+            # Opacity reset (elementwise: on the shards too).
             if it % cfg.opacity_reset_interval == 0 and it > 0:
                 state.gauss.params = reset_opacity(state.gauss.params)
+                whole = None
 
             if it % cfg.log_scalar_interval == 0:
                 dt = time.time() - t_window
@@ -482,7 +554,7 @@ class GaussianTrainer:
                     "train/psnr": float(metrics["psnr"]),
                     "train/scale_reg": float(metrics["scale_reg"]),
                     "lr/xyz": float(metrics["xyz_lr"]),
-                    "n_gaussians": int(state.gauss.n_alive()),
+                    "n_gaussians": int(full().gauss.n_alive()),
                     "sh_degree": sh_deg,
                     "steps_per_sec": sps,
                 }
@@ -491,16 +563,16 @@ class GaussianTrainer:
                 # Overflow counters: tile cap, class budgets, grad buffer.
                 rec.update({k: int(v) for k, v in metrics.items() if k.startswith("stats/")})
                 self.logger.log(rec, step=it)
-                cfg = self._watch_budgets(cfg, rec, state, dataset, it)
-                cfg = self._watch_tile_cap(cfg, rec, state, dataset, it)
+                cfg = self._watch_budgets(cfg, rec, full(), dataset, it)
+                cfg = self._watch_tile_cap(cfg, rec, full(), dataset, it)
 
             if it % cfg.log_hist_interval == 0:
-                self._log_histograms(state, it)
+                self._log_histograms(full(), it)
 
             if cfg.log_image_interval and it % cfg.log_image_interval == 0:
                 try:
                     b = gather_batch([int(train_idx[0])])
-                    img = self._render_view(state, b.viewmats[0], b.Ks[0], sh_deg, width,
+                    img = self._render_view(full(), b.viewmats[0], b.Ks[0], sh_deg, width,
                                             height)
                     side = np.concatenate([img.cpu().numpy(), b.images[0].cpu().numpy()],
                                           axis=1)
@@ -509,7 +581,7 @@ class GaussianTrainer:
                     log.warning("train image log failed: %s", e)
 
             if n_val > 0 and it % cfg.val_interval == 0:
-                vm = self.validate(state, gather_batch, val_idx, sh_deg, width, height)
+                vm = self.validate(full(), gather_batch, val_idx, sh_deg, width, height)
                 if vm:
                     self.logger.log(vm, step=it)
 
@@ -518,22 +590,26 @@ class GaussianTrainer:
             # near-full occupancy.
             if (self.backend == "cuda" and cfg.grad_buffer_frac < 1.0
                     and it % cfg.val_interval == 0):
-                cfg = self._probe_grad_buffer(cfg, state, gather_batch, train_idx, sh_deg,
+                cfg = self._probe_grad_buffer(cfg, full(), gather_batch, train_idx, sh_deg,
                                               width, height, it)
 
             if it % cfg.checkpoint_interval == 0:
-                ck = out / f"checkpoint_{it}.npz"
-                save_checkpoint(str(ck), state, extra=self._render_meta(extent))
-                export_state_ply(state.gauss, str(out / f"checkpoint_{it}.ply"))
-                log.info("checkpoint @%d -> %s", it, ck)
+                whole = full()
+                if self._is_main:
+                    ck = out / f"checkpoint_{it}.npz"
+                    save_checkpoint(str(ck), whole, extra=self._render_meta(extent))
+                    export_state_ply(whole.gauss, str(out / f"checkpoint_{it}.ply"))
+                    log.info("checkpoint @%d -> %s", it, ck)
 
+        state = self._full(state)
         self._save_final(state, out, extent)
-        try:
-            from gaussian_splatting_tpu_torch.utils.plots import draw_graphs
+        if self._is_main:
+            try:
+                from gaussian_splatting_tpu_torch.utils.plots import draw_graphs
 
-            draw_graphs(self.logger.path, str(out))
-        except Exception as e:  # plots are best-effort
-            log.warning("summary plots failed: %s", e)
+                draw_graphs(self.logger.path, str(out))
+            except Exception as e:  # plots are best-effort
+                log.warning("summary plots failed: %s", e)
         return state
 
     # ---- watchdogs -----------------------------------------------------------

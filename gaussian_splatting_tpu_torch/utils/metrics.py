@@ -133,3 +133,18 @@ class MetricsLogger:
                 self.wandb_run.finish()
             except Exception:
                 pass
+
+
+class NullLogger:
+    """A logger that writes nothing: the trainer's logger on the ranks of a
+    mesh other than rank 0, which alone writes files."""
+
+    path = None
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    log_image = log_histogram = log_artifact = log
+
+    def finish(self) -> None:
+        pass

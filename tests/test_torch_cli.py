@@ -116,8 +116,13 @@ def test_load_model_matches_jax(run, fmt):
 @pytest.mark.parametrize("flags", [["--multihost"], ["--mesh-data", "2"],
                                    ["--mesh-model", "2"]], ids=["multihost", "mesh-data",
                                                                 "mesh-model"])
-def test_multihost_and_mesh_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+def test_multihost_and_mesh_raise(flags, tmp_path, monkeypatch):
+    """Outside torchrun and with no coordinator set, ``--multihost`` and a
+    mesh of 2 raise before reading any video, naming torchrun."""
+    for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "MASTER_ADDR",
+              "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         t_train.main(["--videos", str(tmp_path / "missing.mp4"), "--device", "cpu"] + flags)
 
 

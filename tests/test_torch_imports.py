@@ -59,6 +59,20 @@ def test_video_modules_and_clis_are_guarded():
             "video/processor.py"} <= names
 
 
+def test_parallel_and_profiling_modules_are_guarded():
+    names = {str(p.relative_to(ROOT / "gaussian_splatting_tpu_torch")) for p in PORT_FILES
+             if "gaussian_splatting_tpu_torch" in p.parts}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_step.py",
+            "utils/profiling.py"} <= names
+
+
+def test_mesh_test_workers_import_no_jax():
+    """Spawned ranks of the mesh tests import only ``tests/torch_mesh_workers.py``
+    and what it imports: no JAX there either."""
+    path = ROOT / "tests" / "torch_mesh_workers.py"
+    assert not _forbidden(path), _forbidden(path)
+
+
 def test_eval_load_model_imports_without_opencv(tmp_path):
     """``eval_cli.load_model`` reads a checkpoint with OpenCV unimportable:
     the CLI keeps its video imports inside ``main``."""
@@ -122,6 +136,7 @@ def _entry_points(tmp_path):
     from gaussian_splatting_tpu_torch.training.checkpoint import load_reference_pth
     from gaussian_splatting_tpu_torch.training.trainer import GaussianTrainer
     from gaussian_splatting_tpu_torch import eval_cli, train_cli
+    from gaussian_splatting_tpu_torch.parallel import init_multihost, make_mesh
 
     a = _arrays()
     sh = np.concatenate([a["features_dc"], a["features_rest"]], 1)
@@ -156,6 +171,8 @@ def _entry_points(tmp_path):
                                                 str(tmp_path / "none.mp4"), "--output",
                                                 str(tmp_path / "eval")]),
         "eval_cli.load_model": lambda: eval_cli.load_model(_checkpoint(tmp_path)),
+        "make_mesh": lambda: make_mesh(),
+        "init_multihost": lambda: init_multihost("localhost:1", 1, 0),
     }
 
 
@@ -165,7 +182,8 @@ def _entry_points(tmp_path):
                                   "train_state_from_numpy", "save_checkpoint",
                                   "pose_state_init", "render_grad_meta", "GaussianTrainer",
                                   "init_random", "init_from_points", "load_reference_pth",
-                                  "train_cli.main", "eval_cli.main", "eval_cli.load_model"])
+                                  "train_cli.main", "eval_cli.main", "eval_cli.load_model",
+                                  "make_mesh", "init_multihost"])
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = _entry_points(tmp_path)[name]

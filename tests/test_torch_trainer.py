@@ -181,9 +181,12 @@ def test_grad_buffer_probe_grows_the_fraction(rng, tmp_path):
 
 
 def test_mesh_raises_naming_the_roadmap_item(rng, tmp_path):
+    """A mesh runs one process a device: in a process with no process group
+    a 2x1 mesh raises before training, naming torchrun (the trainer on a
+    mesh is ``tests/test_torch_trainer_mesh.py``)."""
     _, ds, gt = _dataset(rng, n_views=4)
     trainer = t_trainer.GaussianTrainer(TConfig(mesh_data=2, batch_size=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    with pytest.raises(ValueError, match=r"needs 2 devices, have 1.*torchrun"):
         trainer.train(ds, str(tmp_path), points=gt)
 
 
