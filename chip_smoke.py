@@ -133,12 +133,33 @@ Phases (any failure exits nonzero and prints no result):
    event (iteration 15), validation and the grad-buffer probe at 20:
    falling finite losses, ``final.npz`` written once (by rank 0) and
    reloading equal to the gathered state, the five kernels launched; its
-   median iteration time beside phase 8's.
+   median iteration time beside phase 8's;
+11. the binning modes (``binning_modes_phase``, run before phase 8; alone:
+   ``modes_alone``) at training view 0 and on the training path, 1M
+   gaussians at 1920x1080: ``depth_bits=16`` on the dense layout (tables
+   and n_isect equal to the exact key's, kernels #1-#5 against their plain
+   versions on its layout, the forward equal to the exact key's bit for bit
+   in every tile where no two depths share a level, the binning and
+   ``torch.sort`` of each key timed in turns, 6 steps beside the dense
+   step in turns); ``sort_bands`` 2 and 4 on compact budgets covering the
+   heaviest band (``band_budgets``), at a tile cap where nothing drops:
+   tables equal to the flat compact binning's, kernels #1-#5 against their
+   plain versions on the band layout (the pack on its gid with the
+   sentinel runs inside the stream), the forward within 1e-6 of the flat
+   one, at K = 4 the queue kernels #6-#7 against theirs at the K-scaled
+   ``w_cap`` and one ``queue=True`` forward + backward through
+   ``rasterize_tiled``, slots, binning time in turns and peak memory
+   beside the flat compact binning; dense bands at K = 2 the same way; then
+   4 steps with ``sort_bands=4`` beside the flat compact step in turns.
+   Kernels #1-#7 must launch through the entry points of the phase.
 
 Output: the kernels JSON line (each row also with ``kernel_ms``, the
 kernel's profiler time, ``trainer_launches``, its launches in phase 8,
 ``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
-and ``mesh_launches``, in phase 10's sharded steps and trainer),
+``mesh_launches``, in phase 10's sharded steps and trainer, and
+``binning_modes_launches`` / ``binning_modes_max_abs_err``, its launches
+through phase 11's entry points and its largest error against its plain
+version on phase 11's layouts),
 the card's name and power limit (``nvidia-smi``), then ``{"ok": true,
 "device": {...}}`` as the last line.
 """
@@ -158,6 +179,13 @@ TRAIN_STEPS = 6
 # The bucket path: sort_buckets 8 at the default partition headroom 1.5
 # (quantum 96 of a 512-slot chunk's mean share 64 per bucket).
 BUCKETS, BUCKET_HEADROOM, BUCKET_STEPS = 8, 1.5, 4
+# Phase 11, the binning modes: the quantized depth key's width and the
+# image tolerance of tests/test_rasterize_pallas.py:398-420 against the
+# exact key (reported: at 1M gaussians two overlapping depths often share
+# a level, and the gate is equality in the tiles where none do); the band counts binned at training view 0 on compact budgets
+# (dense bands at the first only) and trained BAND_STEPS steps at the last.
+DEPTH_BITS, DEPTH_BITS_IMAGE_ATOL = 16, 2e-3
+BANDS, BAND_STEPS = (2, 4), 4
 # The cube [-1, 1]^3 the seeded scene fills: the trainer's scene extent.
 SCENE_EXTENT = 2.0
 # Intersection counts of the bench scene recorded by the JAX package
@@ -386,16 +414,17 @@ def view_eyes(k=4, dist=3.0):
             for a in np.linspace(0.0, 2 * np.pi, k, endpoint=False)]
 
 
-def dense_gid(sargs):
-    """The dense binning's own sort at screen-space inputs ``sargs``: the
-    sorted slot -> gaussian index (M,) and its segment end
-    ``tile_starts[T:]``, the ``n_live`` it passes to ``pack_soa``."""
+def dense_gid(sargs, depth_bits=0):
+    """The dense binning's own sort at screen-space inputs ``sargs`` (on
+    ``depth_bits`` keys): the sorted slot -> gaussian index (M,) and its
+    segment end ``tile_starts[T:]``, the ``n_live`` it passes to
+    ``pack_soa``."""
     from gaussian_splatting_tpu_torch.ops.tiling import binning_slots, sort_slots
 
     means2d, conics, _, opac, depths, radii = sargs
     tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
                                          MAX_T)
-    tile_starts, gid = sort_slots(tile_key, depths, T)
+    tile_starts, gid = sort_slots(tile_key, depths, T, depth_bits=depth_bits)
     return gid, tile_starts[T:]
 
 
@@ -432,14 +461,16 @@ def compare_counts(args_dev, b):
     torch.cuda.empty_cache()
 
 
-def compare_kernels(sargs, b, tag):
+def compare_kernels(sargs, b, tag, depth_bits=0, gid=None):
     """Both forward-path kernels against their plain versions on the dense
-    binning ``b`` of screen-space inputs ``sargs``, with the sort's own gid:
-    pack exact, with ``n_live`` (the binning's SoA) and gathering every
-    column; the forward on the binning's SoA equal bit for bit to the
-    forward on the full-gather plain SoA, and within atol 1e-5 (rgb, sum_w)
-    / 1e-4 (depth) of its plain version. Returns a dict of the errors,
-    outputs and the pack's inputs."""
+    binning ``b`` of screen-space inputs ``sargs``, with the sort's own gid
+    (on ``depth_bits`` keys): pack exact, with ``n_live`` (the binning's
+    SoA) and gathering every column; the forward on the binning's SoA equal
+    bit for bit to the forward on the full-gather plain SoA, and within
+    atol 1e-5 (rgb, sum_w) / 1e-4 (depth) of its plain version. With
+    ``gid`` (the band layout's, its sentinel runs inside the stream) the
+    pack gathers every column of it, as the binning does. Returns a dict of
+    the errors, outputs and the pack's inputs."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import fwd_tiles, fwd_tiles_plain
@@ -447,7 +478,9 @@ def compare_kernels(sargs, b, tag):
         pack_soa, pack_soa_plain, quantity_records)
 
     records = quantity_records(*sargs[:5])
-    gid, n_live = dense_gid(sargs)
+    n_live = None
+    if gid is None:
+        gid, n_live = dense_gid(sargs, depth_bits)
     k_soa = pack_soa(records, gid, 2 * CHUNK, n_live)
     p_soa = pack_soa_plain(records, gid, 2 * CHUNK, n_live)
     torch.cuda.synchronize()
@@ -456,15 +489,20 @@ def compare_kernels(sargs, b, tag):
         fail(f"[{tag}] pack kernel differs from pack_soa_plain (max |diff| {pack_err})")
     if not torch.equal(k_soa, b.sorted_soa):
         fail(f"[{tag}] pack kernel output differs from the binning's SoA")
-    del p_soa
-    k_full = pack_soa(records, gid, 2 * CHUNK)
-    p_full = pack_soa_plain(records, gid, 2 * CHUNK)
-    torch.cuda.synchronize()
-    live = int(n_live)
-    if not (torch.equal(k_full, p_full) and torch.equal(k_full[:, :live], k_soa[:, :live])):
-        fail(f"[{tag}] full-gather pack kernel differs from pack_soa_plain or from the "
-             f"n_live pack below n_live")
-    del k_full, k_soa
+    if n_live is None:
+        live, p_full = gid.shape[0], p_soa
+    else:
+        del p_soa
+        k_full = pack_soa(records, gid, 2 * CHUNK)
+        p_full = pack_soa_plain(records, gid, 2 * CHUNK)
+        torch.cuda.synchronize()
+        live = int(n_live)
+        if not (torch.equal(k_full, p_full)
+                and torch.equal(k_full[:, :live], k_soa[:, :live])):
+            fail(f"[{tag}] full-gather pack kernel differs from pack_soa_plain or from the "
+                 f"n_live pack below n_live")
+        del k_full
+    del k_soa
 
     ntx = -(-WIDTH // TILE)
     k_out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK)
@@ -477,8 +515,9 @@ def compare_kernels(sargs, b, tag):
     err_depth = float(diff[:, 3].max())
     n_bad = int(((diff[:, 0:3] > 1e-5).any(1) | (diff[:, 4] > 1e-5)
                  | (diff[:, 3] > 1e-4)).sum())
-    log(f"[{tag}] pack kernel == plain: exact ({gid.shape[0]} columns, n_live {live}; and "
-        f"gathering all columns); forward on it == forward on the full-gather plain SoA: "
+    gathered = (f"n_live {live}; and gathering all columns" if n_live is not None
+                else "no n_live: every column gathered")
+    log(f"[{tag}] pack kernel == plain: exact ({gid.shape[0]} columns, {gathered}); forward on it == forward on the full-gather plain SoA: "
         f"{same}; forward kernel vs plain over {b.counts.shape[0]} tiles: max |diff| "
         f"rgb/sum_w {err_rgbw:.3e}, depth {err_depth:.3e}, pixels beyond tolerance {n_bad}")
     if not same:
@@ -565,11 +604,12 @@ def grad_errors(k, p):
     return stats, ok
 
 
-def compare_backward(b, fwd_out, n, tag, seed=0):
+def compare_backward(b, fwd_out, n, tag, seed=0, gcap=None):
     """Phase 2b: the backward kernel + the kernel reduce against their
     plain versions on binning ``b`` under a seeded cotangent, then
     ``pack_rows`` and ``segsum`` against their plain versions on the
-    kernel's stream. Returns the errors and the inputs the timings use."""
+    kernel's stream; the stream's capacity ``gcap`` (the dense one by
+    default). Returns the errors and the inputs the timings use."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -580,7 +620,7 @@ def compare_backward(b, fwd_out, n, tag, seed=0):
         pack_rows, pack_rows_plain, reduce_padded_grads, sorted_gid_key)
 
     ntx = -(-WIDTH // TILE)
-    gcap = grad_cap(n, MAX_T, CHUNK)
+    gcap = grad_cap(n, MAX_T, CHUNK) if gcap is None else gcap
     gen = torch.Generator(device=fwd_out.device).manual_seed(seed)
     gout = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
     gout[:, 5:] = 0.0  # rows the image never reads have no cotangent
@@ -646,17 +686,19 @@ def compare_backward(b, fwd_out, n, tag, seed=0):
             "gcap": gcap}
 
 
-def queue_for(b):
+def queue_for(b, w_cap=None):
     """The chunk queue of binning ``b`` at the rasterizer's capacity
-    ``w_cap = N max_t // chunk + T``, n_work as a (1,) tensor."""
+    ``w_cap`` (the dense one, ``N max_t // chunk + T``, by default), n_work
+    as a (1,) tensor."""
     from gaussian_splatting_tpu_torch.ops.tiling import chunk_queue
 
-    wtile, cum, n_work = chunk_queue(b.counts, CHUNK, N_GAUSSIANS * MAX_T // CHUNK
-                                     + b.counts.shape[0])
+    if w_cap is None:
+        w_cap = N_GAUSSIANS * MAX_T // CHUNK + b.counts.shape[0]
+    wtile, cum, n_work = chunk_queue(b.counts, CHUNK, w_cap)
     return wtile, cum, n_work.reshape(1)
 
 
-def compare_queue(b, fwd_out, plain_out, bwd, n, tag):
+def compare_queue(b, fwd_out, plain_out, bwd, n, tag, w_cap=None):
     """The queue kernels on binning ``b``: the queue forward (the kernel
     writes empty tiles' zero blocks) equal to the loop kernel's ``fwd_out``
     bit for bit, hence inside the loop forward's gates against the plain
@@ -671,7 +713,7 @@ def compare_queue(b, fwd_out, plain_out, bwd, n, tag):
     from gaussian_splatting_tpu_torch.ops.tiling import reduce_padded_grads
 
     ntx = -(-WIDTH // TILE)
-    wtile, cum, n_work = queue_for(b)
+    wtile, cum, n_work = queue_for(b, w_cap)
     check_queue(wtile, cum, n_work, b.counts, CHUNK)
     q_out = fwd_tiles_q(wtile, cum, b.tile_starts, b.counts, n_work, b.sorted_soa, TILE,
                         ntx, CHUNK)
@@ -1000,6 +1042,335 @@ def compact_train_phase(dev, scene, views, images, steps=4):
     if not losses[-1] < losses[0]:
         fail(f"[compact step] the loss did not descend: {losses}")
     return step, state, batch, step_ms
+
+
+def peak_gib(fn):
+    """Peak device memory (GiB) of one call of ``fn`` above what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def in_turns(fns, reps=5):
+    """``cuda_ms`` of each of ``fns`` (a dict) in turns, A B .. B A: both
+    medians of each, in that order."""
+    out = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        out[k].append(cuda_ms(fns[k], reps=reps))
+    return out
+
+
+def depth_tie_tiles(b, depth_bits):
+    """The tiles of the exact binning ``b`` in which two neighbouring
+    entries of different depth share a ``depth_bits`` level (quantized as
+    ``tiling.slot_sort_key`` does, over the real entries' depth range): the
+    only tiles whose order the quantized key may change. Elsewhere equal
+    levels mean equal depths, which both keys leave in slot order."""
+    import torch
+
+    n = int(b.n_isect)
+    d = b.sorted_soa[9, :n]
+    levels = (1 << depth_bits) - 1
+    dmin, dmax = torch.amin(d), torch.amax(d)
+    qd = torch.clamp((d - dmin) * (levels / torch.clamp_min(dmax - dmin, 1e-20)), 0,
+                     levels).to(torch.int32)
+    T = b.counts.shape[0]
+    tile = torch.repeat_interleave(torch.arange(T, device=d.device), b.counts.long())
+    tie = (qd[1:] == qd[:-1]) & (d[1:] != d[:-1]) & (tile[1:] == tile[:-1])
+    tied = torch.zeros((T,), dtype=torch.bool, device=d.device)
+    tied[tile[1:][tie]] = True
+    return tied
+
+
+def hold_layout(sargs, b, tag, n, gcap, flat_out=None, atol=0.0, **kw):
+    """Kernels #1-#5 against their plain versions on binning ``b``
+    (``compare_kernels``, ``compare_backward`` at capacity ``gcap``; ``kw``
+    to ``compare_kernels``), and its forward against ``flat_out`` (rows
+    rgb, alpha) within ``atol``. Returns the forward outputs, the backward's
+    report and the errors."""
+    import torch
+
+    kc = compare_kernels(sargs, b, tag, **kw)
+    err = None
+    if flat_out is not None:
+        d = (kc["fwd_out"] - flat_out).abs()
+        err = float(torch.cat([d[:, 0:3], d[:, 4:5]], 1).max())
+        log(f"[{tag}] forward against the flat path's: max |diff| rgb/alpha {err:.3e} "
+            f"(gate {atol}), depth {float(d[:, 3].max()):.3e}")
+        if not err <= atol:
+            fail(f"[{tag}] the image differs from the flat path's")
+    bwd = compare_backward(b, kc["fwd_out"], n, tag, seed=1, gcap=gcap)
+    errs = {"pack_soa": kc["pack_err"], "rasterize_fwd": kc["fwd_err"],
+            "rasterize_bwd": bwd["bwd_err"], "pack_rows": bwd["pack_rows_err"],
+            "segsum": bwd["segsum_err"]}
+    return kc, bwd, errs, err
+
+
+def _check_steps(tag, rows, budget_check):
+    """Falling finite losses and no gradient entry dropped over a run of
+    step metrics ``rows``; ``budget_check`` also holds the budget drops (none
+    at step 0, at most BUDGET_DROP_FRAC of n_isect later)."""
+    losses = [r["loss"] for r in rows]
+    for i, r in enumerate(rows):
+        bd = r["n_budget_dropped"]
+        ok_budget = not budget_check or (bd == 0 if i == 0
+                                         else bd <= BUDGET_DROP_FRAC * r["n_isect"])
+        if not np.isfinite(r["loss"]) or r["n_grad_dropped"] or not ok_budget:
+            fail(f"[{tag}] step {i}: loss not finite or entries dropped: {r}")
+    if not losses[-1] < losses[0]:
+        fail(f"[{tag}] the loss did not descend: {losses}")
+
+
+def steps_in_turns(dev, scene, images, views, configs, steps):
+    """``steps`` steps of ``make_train_step`` for each of ``configs`` (a
+    dict of TrainingConfig), each from phase 5's noisy starting state, in
+    turns. Returns per config the step metrics, the CUDA-event ms and the
+    launches of its steps."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.training.step import ViewBatch, make_train_step
+
+    batch = ViewBatch(images=images,
+                      viewmats=torch.stack([v["world_view_transform"] for v in views]),
+                      Ks=torch.stack([v["K"] for v in views]))
+    runs = {k: {"step": make_train_step(c, WIDTH, HEIGHT, 3, c.backend, SCENE_EXTENT,
+                                        device=dev),
+                "state": train_state_from_numpy(noisy_train_arrays(scene, seed=1), device=dev),
+                "rows": [], "ms": [], "launches": {}} for k, c in configs.items()}
+    for i in range(steps):
+        for k, r in runs.items():
+            before = read_launches()
+            r["state"], m, ms = _step_ms(r["step"], r["state"], batch)
+            r["launches"] = _add(r["launches"], _launch_delta(before))
+            row = {"loss": float(m["loss"]), "ms": ms,
+                   **{k2: int(m[f"stats/{k2}"]) for k2 in (
+                       "n_isect", "n_dropped", "n_budget_dropped", "n_grad_dropped")}}
+            r["rows"].append(row)
+            r["ms"].append(ms)
+            log(f"[steps] {k} step {i}: " + ", ".join(
+                f"{k2} {v:.6f}" if isinstance(v, float) else f"{k2} {v}"
+                for k2, v in row.items()))
+    for k, r in runs.items():
+        del r["state"], r["step"]
+        log(f"[steps] {k}: median of steps 1-{steps - 1} {statistics.median(r['ms'][1:]):.3f} ms")
+    torch.cuda.empty_cache()
+    return runs
+
+
+def binning_modes_phase(dev, scene, views, images, sargs, b, fwd_out):
+    """Phase 11: the binning modes ``depth_bits`` and ``sort_bands`` at full
+    width, training view 0 (screen-space inputs ``sargs``, the dense
+    binning ``b`` and its forward ``fwd_out``) and the training path.
+    Returns the errors of kernels #1-#7 on these layouts, their launches
+    through the entry points and the times."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        _config, fwd_tiles, grad_cap, n_sort_slots, rasterize_tiled)
+    from gaussian_splatting_tpu_torch.ops.render import project_and_shade
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        binning_slots, isect_and_sort, slot_sort_key, total_slots)
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+
+    N = N_GAUSSIANS
+    errs, launches, rep = {}, {}, {}
+    t_phase = time.perf_counter()
+
+    def binned(tag, **kw):
+        before = read_launches()
+        out = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, **kw)
+        torch.cuda.synchronize()
+        launches.update(_add(launches, _launch_delta(before)))
+        log(f"[{tag}] n_isect {int(out.n_isect)}, n_dropped {int(out.n_dropped)}, "
+            f"n_budget_dropped {int(out.n_budget_dropped)}, tile_starts[T] "
+            f"{int(out.tile_starts[-1])}")
+        return out
+
+    def merge(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    # depth_bits, dense, training view 0.
+    tag = f"depth_bits {DEPTH_BITS}"
+    bq = binned(tag, depth_bits=DEPTH_BITS)
+    same = (torch.equal(bq.tile_starts, b.tile_starts) and torch.equal(bq.counts, b.counts)
+            and int(bq.n_isect) == int(b.n_isect))
+    log(f"[{tag}] tile_starts, counts and n_isect equal to the exact key's: {same}")
+    if not same:
+        fail(f"[{tag}] the quantized key changed the segment tables")
+    kc, bwd, e, _ = hold_layout(sargs, bq, tag, N, None, depth_bits=DEPTH_BITS)
+    merge(e)
+    # Against the exact key: bit for bit in every tile where no two depths
+    # share a level; where some do, the blend order of those entries may
+    # change (printed, and the share of pixels beyond the JAX test's 2e-3).
+    tied = depth_tie_tiles(b, DEPTH_BITS)
+    d = (kc["fwd_out"] - fwd_out).abs()
+    img = torch.cat([d[:, 0:3], d[:, 4:5]], 1)
+    untied_same = torch.equal(kc["fwd_out"][~tied], fwd_out[~tied])
+    rep["depth_bits_image"] = {
+        "max_abs_diff": float(img.max()), "tied_tiles": int(tied.sum()),
+        "pixels_over_atol": float((img > DEPTH_BITS_IMAGE_ATOL).any(1).float().mean())}
+    log(f"[{tag}] forward against the exact key's: bit for bit in the {int((~tied).sum())} "
+        f"tiles where no two depths share a level: {untied_same}; {int(tied.sum())} tiles hold "
+        f"such a tie: max |diff| rgb/alpha {float(img.max()):.3e}, share of pixels over "
+        f"{DEPTH_BITS_IMAGE_ATOL} {rep['depth_bits_image']['pixels_over_atol']:.3e}")
+    if not untied_same:
+        fail(f"[{tag}] the forward differs from the exact key's in a tile with no level tie")
+    del kc, bwd, bq, d, img, tied
+    means2d, conics, _, opac, depths, radii = sargs
+    tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
+                                         MAX_T)
+    k64, _ = slot_sort_key(tile_key, depths, T)
+    k32, _ = slot_sort_key(tile_key, depths, T, depth_bits=DEPTH_BITS)
+    del tile_key
+    t = in_turns({"exact": lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T),
+                  "depth_bits": lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK,
+                                                       MAX_T, depth_bits=DEPTH_BITS),
+                  "sort_int64": lambda: torch.sort(k64, stable=True),
+                  "sort_int32": lambda: torch.sort(k32, stable=True)})
+    rep["depth_bits_ms"] = t
+    log(f"[{tag}] binning incl. pack, ms in turns (A B C D D C B A): exact int64 key "
+        f"{t['exact']}, depth_bits {t['depth_bits']}; torch.sort alone of the "
+        f"{k64.shape[0]} keys: int64 {t['sort_int64']}, int32 {t['sort_int32']}")
+    del k64, k32
+    torch.cuda.empty_cache()
+
+    # sort_bands on compact budgets covering the heaviest band. Where the
+    # tile cap binds, a band keeps more tiles than the flat path (the cap
+    # applies per band), so the comparison needs a view where it does not.
+    flat_budgets = band_budgets([sargs], 1)
+    bf = binned("bands flat compact", class_budgets=flat_budgets)
+    if int(b.n_dropped) or int(bf.n_dropped) or int(bf.n_budget_dropped):
+        fail("[bands] the flat binning drops tiles at training view 0: bands and flat differ")
+    ntx = -(-WIDTH // TILE)
+    flat_out = fwd_tiles(bf.tile_starts, bf.counts, bf.sorted_soa, TILE, ntx, CHUNK)
+    rep["bands"] = {"flat_budgets": flat_budgets,
+                    "flat_slots": total_slots(N, MAX_T, flat_budgets)}
+    flat_fn = (lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                      class_budgets=flat_budgets))
+    rep["bands"]["flat_peak_gib"] = peak_gib(flat_fn)
+    for K in BANDS:
+        tag = f"sort_bands {K}"
+        budgets = band_budgets([sargs], K)
+        bb = binned(tag, class_budgets=budgets, sort_bands=K)
+        n_slots = n_sort_slots(N, MAX_T, budgets, K)
+        ok = (int(bb.tile_starts[-1]) == n_slots and torch.equal(bb.counts, bf.counts)
+              and int(bb.n_isect) == int(bf.n_isect)
+              and int(bb.n_dropped) == int(bb.n_budget_dropped) == 0)
+        log(f"[{tag}] budgets {budgets}: {n_slots} slots ({K} x {n_slots // K}; flat "
+            f"{rep['bands']['flat_slots']}); counts and n_isect equal to the flat compact "
+            f"binning's, nothing dropped: {ok}")
+        if not ok:
+            fail(f"[{tag}] the band binning's tables or counters differ from the flat path's")
+        gid = bb.sorted_soa[11, :n_slots].to(torch.int32)
+        kc, bwd, e, img_err = hold_layout(sargs, bb, tag, N,
+                                          grad_cap(N, MAX_T, CHUNK, 1.0, budgets, K),
+                                          flat_out=flat_out, atol=1e-6, gid=gid)
+        merge(e)
+        w_cap = _config(N, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, 1.0, queue=True,
+                        class_budgets=budgets, sort_bands=K).w_cap
+        if K == BANDS[-1]:
+            q = compare_queue(bb, kc["fwd_out"], kc["plain_out"], bwd, N, tag, w_cap=w_cap)
+            merge({"rasterize_fwd_q": q["fwd_q_err"], "rasterize_bwd_q": q["bwd_q_err"]})
+            # The queue path through the entry point, forward + backward.
+            leaves = [x.detach().requires_grad_(True) for x in sargs[:5]]
+            before = read_launches()
+            img, alpha, _ = rasterize_tiled(*leaves, sargs[5], WIDTH, HEIGHT, tile_size=TILE,
+                                            chunk=CHUNK, class_budgets=budgets, sort_bands=K, queue=True,
+                                            depth_grad=False)
+            (img.sum() + alpha.sum()).backward()
+            torch.cuda.synchronize()
+            launches.update(_add(launches, _launch_delta(before)))
+            finite = all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+            log(f"[{tag}] queue=True forward + backward through rasterize_tiled (w_cap "
+                f"{w_cap}): gradients finite {finite}")
+            if not finite:
+                fail(f"[{tag}] the queue path's gradients are not finite")
+            del leaves, img, alpha
+        t = in_turns({"flat": flat_fn,
+                      "bands": lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                                      class_budgets=budgets, sort_bands=K)})
+        peak = peak_gib(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                               class_budgets=budgets, sort_bands=K))
+        rep["bands"][K] = {"budgets": budgets, "slots": n_slots, "ms": t, "peak_gib": peak,
+                           "image_err": img_err, "w_cap": w_cap,
+                           "grad_cap": bwd["gcap"]}
+        log(f"[{tag}] binning incl. pack, ms in turns (flat, bands, bands, flat): flat "
+            f"compact {t['flat']}, bands {t['bands']}; peak memory of one binning "
+            f"{peak:.3f} GiB (flat {rep['bands']['flat_peak_gib']:.3f}); grad_cap "
+            f"{bwd['gcap']}, w_cap {w_cap}")
+        del kc, bwd, bb, gid
+        torch.cuda.empty_cache()
+    del bf, flat_out
+
+    # Dense bands, K = 2, at the full dense layout.
+    tag = "sort_bands 2 dense"
+    peak = peak_gib(lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                           sort_bands=2))
+    bd = binned(tag, sort_bands=2)
+    ok = (int(bd.tile_starts[-1]) == 2 * N * MAX_T and torch.equal(bd.counts, b.counts)
+          and int(bd.n_isect) == int(b.n_isect))
+    log(f"[{tag}] {2 * N * MAX_T} slots, peak memory of one binning {peak:.3f} GiB; tables "
+        f"as the flat dense binning's: {ok}")
+    if not ok:
+        fail(f"[{tag}] the dense band binning's tables differ")
+    gid = bd.sorted_soa[11, :2 * N * MAX_T].to(torch.int32)
+    kc, bwd, e, _ = hold_layout(sargs, bd, tag, N, grad_cap(N, MAX_T, CHUNK, 1.0, None, 2),
+                                flat_out=fwd_out, atol=1e-6, gid=gid)
+    merge(e)
+    t = in_turns({"dense": lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T),
+                  "bands": lambda: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T,
+                                                  sort_bands=2)}, reps=3)
+    rep["dense_bands"] = {"ms": t, "peak_gib": peak}
+    log(f"[{tag}] binning incl. pack, ms in turns: dense flat {t['dense']}, bands {t['bands']}")
+    del kc, bwd, bd, gid
+    torch.cuda.empty_cache()
+
+    # The training path: depth_bits beside the dense step; sort_bands beside
+    # the flat compact step, on budgets measured per band over the 4 views
+    # of the starting state.
+    runs = steps_in_turns(dev, scene, images, views, {
+        "dense": TrainingConfig(backend="auto"),
+        "depth_bits": TrainingConfig(backend="auto", sort_depth_bits=DEPTH_BITS)}, TRAIN_STEPS)
+    launches.update(_add(launches, runs["depth_bits"]["launches"]))
+    _check_steps("depth_bits steps", runs["depth_bits"]["rows"], False)
+    rep["depth_bits_steps"] = {k: r["ms"] for k, r in runs.items()}
+    p = train_state_from_numpy(noisy_train_arrays(scene, seed=1), device=dev).gauss.params
+    with torch.no_grad():
+        vargs = []
+        for v in views:
+            proj, col, op = project_and_shade(p.means, p.quats, p.log_scales, p.logit_opacities,
+                                              p.sh_coeffs, v["world_view_transform"], v["K"],
+                                              WIDTH, HEIGHT, sh_degree=3)
+            vargs.append((proj.means2d, proj.conics, col, op, proj.depths, proj.radii))
+    del p
+    b_flat, b_band = band_budgets(vargs, 1), band_budgets(vargs, BANDS[-1])
+    del vargs
+    log(f"[steps] budgets over the 4 views: flat {b_flat}, {BANDS[-1]} bands {b_band}")
+    runs = steps_in_turns(dev, scene, images, views, {
+        "compact": TrainingConfig(backend="auto", class_budgets=b_flat),
+        "bands": TrainingConfig(backend="auto", class_budgets=b_band,
+                                sort_bands=BANDS[-1])}, BAND_STEPS)
+    launches.update(_add(launches, runs["bands"]["launches"]))
+    _check_steps("band steps", runs["bands"]["rows"], True)
+    rep["band_steps"] = {k: r["ms"] for k, r in runs.items()}
+    rep["band_step_budgets"] = {"flat": b_flat, "bands": b_band}
+    for name in KERNELS[:7]:
+        if launches.get(name, 0) < 1:
+            fail(f"[binning modes] kernel {name} never launched through the entry points: "
+                 f"{launches}")
+    log(f"[binning modes] launches through the entry points {launches}; phase 11 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"errs": errs, "launches": launches, **rep}
 
 
 def _timed_logger_class():
@@ -1678,6 +2049,51 @@ def mesh_alone():
     log(f"[mesh] phase 10 alone: launches {rep['all_launches']}")
 
 
+def modes_inputs(dev, scene, views):
+    """Phase 11's inputs when it runs alone: training view 0 of phase 5's
+    noisy starting state (screen-space inputs, the dense binning and its
+    forward)."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import fwd_tiles
+    from gaussian_splatting_tpu_torch.ops.render import project_and_shade
+    from gaussian_splatting_tpu_torch.ops.tiling import isect_and_sort
+
+    p = train_state_from_numpy(noisy_train_arrays(scene, seed=1), device=dev).gauss.params
+    with torch.no_grad():
+        proj, colors, opac = project_and_shade(
+            p.means, p.quats, p.log_scales, p.logit_opacities, p.sh_coeffs,
+            views[0]["world_view_transform"], views[0]["K"], WIDTH, HEIGHT, sh_degree=3)
+    sargs = (proj.means2d, proj.conics, colors, opac, proj.depths, proj.radii)
+    b = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T)
+    return sargs, b, fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, -(-WIDTH // TILE),
+                               CHUNK)
+
+
+def modes_alone():
+    """Phase 11 alone on the card, after the build and the render phase it
+    takes its images from, at training view 0 of the noisy starting state:
+    ``python -c "import chip_smoke; chip_smoke.modes_alone()"`` from the
+    repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    _, images, _ = render_phase(dev, state_from_numpy(scene, device=dev), views)
+    rep = binning_modes_phase(dev, scene, views, images, *modes_inputs(dev, scene, views))
+    log(f"[binning modes] phase 11 alone: errors {rep['errs']}")
+
+
 def _cli_call(main, argv, records):
     """``main(argv)`` of a CLI with its standard output kept off this
     script's (the eval CLI prints a JSON summary line); returns the exit
@@ -1904,20 +2320,13 @@ def binning_peak_gib(sargs, class_budgets=None):
 
     from gaussian_splatting_tpu_torch.ops.tiling import isect_and_sort
 
-    peaks = {}
     modes = [("dense", {}), ("bucket", {"sort_buckets": BUCKETS,
                                         "bucket_headroom": BUCKET_HEADROOM})]
     if class_budgets is not None:
         modes.append(("compact", {"class_budgets": class_budgets}))
-    for name, kw in modes:
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, **kw)
-        torch.cuda.synchronize()
-        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
-        del out
-    return peaks
+    return {name: peak_gib(lambda kw=kw: isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK,
+                                                        MAX_T, **kw))
+            for name, kw in modes}
 
 
 def trace(fn, tag):
@@ -2027,8 +2436,8 @@ def bench_phase(dev):
     torch.cuda.empty_cache()
 
     # The bench.py workload (bench.py:149-168): forward + backward of
-    # sum(img) + sum(alpha) with depth_grad=False; dense binning here, as
-    # compact class budgets are not ported. queue=True is its
+    # sum(img) + sum(alpha) with depth_grad=False; dense binning here (phase
+    # 2c runs it on compact budgets, as bench.py does). queue=True is its
     # GS_BENCH_QUEUE=1 variant (bench.py:81): the queue path.
     diff = [x.clone().requires_grad_(True) for x in args[:5]]
 
@@ -2091,18 +2500,36 @@ def bench_phase(dev):
 
 
 def bench_budgets(args):
-    """The compact class budgets of ``bench.py:92-108``: the bench scene's
-    class histogram (exact footprints, capped at MAX_T), 1.05 headroom
-    rounded up to 128 plus 128, squeezed under a power of two."""
-    from gaussian_splatting_tpu_torch.ops.tiling import (
-        class_caps, exact_tile_counts, squeeze_budgets_under_pow2)
+    """The compact class budgets of ``bench.py:92-108`` for the bench
+    scene (``band_budgets`` of its one view, flat)."""
+    return band_budgets([args], 1)
 
-    means2d, conics, _, opac, _, radii = (x.cpu().numpy() for x in args)
+
+def band_budgets(views_args, bands):
+    """The compact class budgets of ``bench.py:86-108`` covering the
+    heaviest of ``bands`` bands of tile rows in every view of
+    ``views_args``: per band the class histogram of the exact footprints
+    clipped to its rows (``exact_tile_counts(row_lo, row_hi)``), capped at
+    MAX_T, the maximum over bands and views, 1.05 headroom rounded up to
+    128 plus 128, squeezed under a power of two. ``bands`` 1 is the flat
+    histogram."""
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        cdiv, class_caps, exact_tile_counts, squeeze_budgets_under_pow2)
+
     caps = np.asarray(class_caps(MAX_T))
-    nt = np.minimum(exact_tile_counts(means2d, radii, WIDTH, HEIGHT, TILE, conics=conics,
-                                      opacities=opac), MAX_T)
-    cls = np.searchsorted(caps, np.clip(nt, 1, MAX_T))
-    hist = np.bincount(cls[nt > 0], minlength=len(caps))[:len(caps)]
+    nty = cdiv(HEIGHT, TILE)
+    band_h = cdiv(nty, bands)
+    hist = np.zeros(len(caps), np.int64)
+    for args in views_args:
+        means2d, conics, _, opac, _, radii = (x.cpu().numpy() for x in args)
+        for k in range(bands):
+            lo, hi = min(k * band_h, nty), min((k + 1) * band_h, nty)
+            nt = np.minimum(exact_tile_counts(means2d, radii, WIDTH, HEIGHT, TILE,
+                                              conics=conics, opacities=opac, row_lo=lo,
+                                              row_hi=hi), MAX_T)
+            cls = np.searchsorted(caps, np.clip(nt, 1, MAX_T))
+            hist = np.maximum(hist,
+                              np.bincount(cls[nt > 0], minlength=len(caps))[:len(caps)])
     budgets = tuple(int(np.ceil(h * 1.05 / 128) * 128 + 128) for h in hist)
     hard_min = tuple(int(np.ceil(h / 128) * 128) for h in hist)
     return squeeze_budgets_under_pow2(budgets, hard_min, caps)
@@ -2824,6 +3251,10 @@ def run(dev):
     del tile_key, depths_v
     torch.cuda.empty_cache()
 
+    # 11. The binning modes at training view 0 and on the training path.
+    modes = binning_modes_phase(dev, scene, views, images, sargs, b, fwd_out)
+    torch.cuda.empty_cache()
+
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
     # 9. The user journey through the two CLIs; their launches too.
@@ -2841,7 +3272,9 @@ def run(dev):
                 "trainer_launches": tr["launches"][name],
                 "train_cli_launches": cli["train_launches"][name],
                 "eval_cli_launches": cli["eval_launches"][name],
-                "mesh_launches": mesh["all_launches"][name], **extra}
+                "mesh_launches": mesh["all_launches"][name],
+                "binning_modes_launches": modes["launches"].get(name, 0),
+                "binning_modes_max_abs_err": modes["errs"].get(name), **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

@@ -52,6 +52,24 @@ class Camera:
         return self.K[..., 0, 0], self.K[..., 1, 1]
 
 
+def projection_matrix(K: torch.Tensor, width: int, height: int, znear: float = 0.01,
+                      zfar: float = 100.0) -> torch.Tensor:
+    """OpenGL-style (..., 4, 4) projection matrix from (..., 3, 3)
+    pinhole intrinsics, built as the JAX package builds it, so exported
+    viewpoints mean the same in both."""
+    fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
+    zero = torch.zeros_like(fx)
+    one = torch.ones_like(fx)
+    rows = [
+        torch.stack([2 * fx / width, zero, 2 * cx / width - 1, zero], dim=-1),
+        torch.stack([zero, 2 * fy / height, 2 * cy / height - 1, zero], dim=-1),
+        torch.stack([zero, zero, one * zfar / (zfar - znear),
+                     -one * zfar * znear / (zfar - znear)], dim=-1),
+        torch.stack([zero, zero, one, zero], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
 def focal_from_heuristic(width: int, height: int, focal_35mm: float | None = None) -> float:
     """COLMAP-style focal prior in pixels: ``(f35 / 36) * max(W, H)`` with a
     35mm-equivalent focal length, else ``1.2 * max(W, H)``."""

@@ -61,3 +61,10 @@ def apply_pose_delta(viewmat: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiply the world-to-camera ``viewmat`` (4, 4) by exp(xi): a
     correction of the camera itself in its own frame."""
     return se3_exp(xi) @ viewmat
+
+
+def se3_log_rot_angle(R: torch.Tensor) -> torch.Tensor:
+    """Rotation angle (radians) of (..., 3, 3) rotation matrices: the
+    geodesic rotation error between two poses."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))

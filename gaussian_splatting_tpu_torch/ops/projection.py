@@ -64,6 +64,14 @@ def compute_cov3d_cols(quats: torch.Tensor, scales: torch.Tensor) -> Tuple[torch
     return s00, s01, s02, s11, s12, s22
 
 
+def compute_cov3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Sigma3 as a dense (..., 3, 3) tensor (small sizes and tests; the
+    render path uses the column form ``compute_cov3d_cols``)."""
+    s00, s01, s02, s11, s12, s22 = compute_cov3d_cols(quats, scales)
+    rows = torch.stack([s00, s01, s02, s01, s11, s12, s02, s12, s22], dim=-1)
+    return rows.reshape(rows.shape[:-1] + (3, 3))
+
+
 def project_gaussians(
     means: torch.Tensor,
     quats: torch.Tensor,

@@ -36,7 +36,6 @@ import torch
 from gaussian_splatting_tpu_torch.ops import _build
 from gaussian_splatting_tpu_torch.ops.tiling import (
     cdiv,
-    check_binning_mode,
     chunk_queue,
     isect_and_sort,
     reduce_padded_grads,
@@ -523,14 +522,22 @@ def bwd_tiles_q(wtile: torch.Tensor, cum: torch.Tensor, tile_starts: torch.Tenso
 bwd_tiles_q.launches = 0
 
 
+def n_sort_slots(n_gaussians: int, max_t: int, class_budgets=None, sort_bands: int = 0) -> int:
+    """The binning's stream length (``rasterize_pallas.py:805-807``): the
+    slots of one layout, times K with ``sort_bands = K > 1`` (each band
+    enumerates ``total_slots`` slots under the shared budgets)."""
+    return total_slots(n_gaussians, max_t, class_budgets) * max(int(sort_bands), 1)
+
+
 def grad_cap(n_gaussians: int, max_t: int, chunk: int,
-             grad_buffer_frac: float = 1.0, class_budgets=None) -> int:
+             grad_buffer_frac: float = 1.0, class_budgets=None, sort_bands: int = 0) -> int:
     """Capacity of the backward kernel's gradient stream
     (``rasterize_pallas.py:823-828``, ``grad_cap_mult`` 8): the bound, the
-    slot count on the compact layout (``class_budgets``) and min(N * max_t,
-    8N) on the dense one, scaled by ``grad_buffer_frac``, rounded up to a
-    chunk, plus one chunk for the final sentinel pad."""
-    n_slots = total_slots(n_gaussians, max_t, class_budgets)
+    stream length (``n_sort_slots``) on the compact layout
+    (``class_budgets``) and min(stream length, 8N) on the dense one, scaled
+    by ``grad_buffer_frac``, rounded up to a chunk, plus one chunk for the
+    final sentinel pad."""
+    n_slots = n_sort_slots(n_gaussians, max_t, class_budgets, sort_bands)
     bound = n_slots if class_budgets is not None else min(n_slots, 8 * n_gaussians)
     bound = max(chunk, int(bound * float(grad_buffer_frac)))
     return cdiv(bound, chunk) * chunk + chunk
@@ -550,29 +557,34 @@ class _Config(NamedTuple):
     sort_buckets: int
     bucket_headroom: float
     class_budgets: Optional[tuple]
+    depth_bits: int
+    sort_bands: int
 
 
 def _config(N, width, height, ts, chunk, max_t, grad_buffer_frac, depth_grad=True,
             reduce_slices=0, queue=False, sort_buckets=0, bucket_headroom=1.5,
-            class_budgets=None):
+            class_budgets=None, depth_bits=0, sort_bands=0):
     """The static sizes of one rasterizer configuration
     (``rasterize_pallas.py:800-828``): the gradient stream's capacity and
     the chunk queue's, ``w_cap = n_slots // chunk + T`` (at most one
-    partial chunk per tile beyond the full ones), n_slots counting the
-    compact layout's slots when ``class_budgets`` is given."""
+    partial chunk per tile beyond the full ones), n_slots the binning's
+    stream length (``n_sort_slots``: the compact layout's slots when
+    ``class_budgets`` is given, K times them with ``sort_bands = K``)."""
     T = cdiv(width, ts) * cdiv(height, ts)
     budgets = None if class_budgets is None else tuple(int(b) for b in class_budgets)
     return _Config(width, height, ts, chunk, max_t,
-                   grad_cap(N, max_t, chunk, grad_buffer_frac, budgets), bool(depth_grad),
-                   int(reduce_slices), bool(queue),
-                   total_slots(N, max_t, budgets) // chunk + T, int(sort_buckets),
-                   float(bucket_headroom), budgets)
+                   grad_cap(N, max_t, chunk, grad_buffer_frac, budgets, sort_bands),
+                   bool(depth_grad), int(reduce_slices), bool(queue),
+                   n_sort_slots(N, max_t, budgets, sort_bands) // chunk + T,
+                   int(sort_buckets), float(bucket_headroom), budgets, int(depth_bits),
+                   int(sort_bands))
 
 
 def _binned(cfg: _Config, means2d, conics, colors, opacities, depths, radii):
     return isect_and_sort(means2d, conics, colors, opacities, depths, radii, cfg.width,
                           cfg.height, cfg.ts, cfg.chunk, cfg.max_t,
-                          class_budgets=cfg.class_budgets, sort_buckets=cfg.sort_buckets,
+                          class_budgets=cfg.class_budgets, depth_bits=cfg.depth_bits,
+                          sort_buckets=cfg.sort_buckets, sort_bands=cfg.sort_bands,
                           bucket_headroom=cfg.bucket_headroom)
 
 
@@ -674,17 +686,18 @@ def rasterize_tiled(
     its overflow is folded into ``n_budget_dropped``, as the JAX package
     does. ``class_budgets`` bins on the compact footprint-class layout
     (``tiling.compact_slots``; the gradient stream is then bounded by its
-    slot count). ``depth_bits`` and ``sort_bands`` are not ported yet and
-    raise ``NotImplementedError``."""
+    slot count). ``depth_bits`` sorts on quantized depth keys and
+    ``sort_bands = K`` bins K bands of tile rows on their own
+    (``tiling.isect_and_sort``); the gradient stream and the chunk queue
+    then bound K times the slot count."""
     ts = tile_size
     if ts * ts not in (64, 256, 1024):
         raise ValueError("tile_size must be 8, 16, or 32")
-    check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
     ntx = cdiv(width, ts)
     nty = cdiv(height, ts)
     cfg = _config(means2d.shape[0], width, height, ts, chunk, max_tiles_per_gaussian,
                   grad_buffer_frac, depth_grad, reduce_slices, queue, sort_buckets,
-                  bucket_headroom, class_budgets)
+                  bucket_headroom, class_budgets, depth_bits, sort_bands)
     out, n_isect, n_dropped, n_budget_dropped, n_grad_dropped = _RasterizeTiled.apply(
         means2d, conics, colors, opacities, depths, radii, cfg)
 
@@ -716,11 +729,11 @@ def rasterize_grad_meta(means2d, conics, colors, opacities, depths, radii, width
     backward sweep with unit cotangents (occupancy depends on the segments,
     not on the cotangent values). Counterpart of ``rasterize_pallas.py:1120``;
     it sizes ``grad_buffer_frac``."""
-    check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
     N = means2d.shape[0]
     cfg = _config(N, width, height, tile_size, chunk, max_tiles_per_gaussian,
                   grad_buffer_frac, queue=queue, sort_buckets=sort_buckets,
-                  bucket_headroom=bucket_headroom, class_budgets=class_budgets)
+                  bucket_headroom=bucket_headroom, class_budgets=class_budgets,
+                  depth_bits=depth_bits, sort_bands=sort_bands)
     with torch.no_grad():
         b = _binned(cfg, means2d, conics, colors, opacities, depths, radii)
         out = _run_fwd(cfg, b)

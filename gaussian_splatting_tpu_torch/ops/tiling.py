@@ -21,6 +21,10 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
 2. One stable ``torch.sort`` of the int64 key ``(tile << 32) | depth bits``
    (depth bits in float total order, so ties resolve as ``lax.sort`` over
    the same slot layout resolves them); sentinel slots sink to the end.
+   ``depth_bits = b > 0`` sorts the int32 key ``tile * 2^b + quantized
+   depth`` instead (``sort_slots``): depths quantized to 2^b - 1 levels
+   over the real slots' range, so only the blend order of nearly equal
+   depths changes.
 3. ``searchsorted`` gives the per-tile segment starts and counts.
 4. ``pack_soa`` (CUDA kernel 1) builds the kernel-ready (16, >= M + pad)
    SoA by gathering the (N, 10) per-gaussian records through the sorted
@@ -55,8 +59,11 @@ id key per slice of the backward kernel's stream, ``pack_rows`` (CUDA
 kernel 5) gathering the payload rows through that sort's permutation, and
 ``segment_sum_sorted`` (``ops/segsum.py``, CUDA kernel 4).
 
-Quantized depth keys and band-split sorts are not ported and raise
-``NotImplementedError`` naming their ROADMAP item.
+``sort_bands = K > 1`` (``_band_binned``) enumerates and sorts K
+horizontal bands of tile rows on their own and concatenates the K sorted
+streams: each band's sentinel slots sit at its tail, inside the stream,
+and ``tile_starts[T]`` is the stream length. The dense SoA's zeroing past
+n_isect does not apply there; no kernel reads a column outside a segment.
 """
 
 from __future__ import annotations
@@ -207,13 +214,16 @@ def _gate_q(opacities):
         2.0 * (torch.log(255.0 * torch.clamp_min(opacities, 1e-12)) + 1e-3), 0.0)
 
 
-def _tile_rects(means2d, conics, opacities, radii, width, height, ts, max_t):
+def _tile_rects(means2d, conics, opacities, radii, width, height, ts, max_t,
+                row_lo: int = 0, row_hi: Optional[int] = None):
     """Sheared-window tile geometry per gaussian: ny rows of a constant-width
     window following the ellipse axis, inside the exact gate-ellipse AABB
-    intersected with the radius bbox. Returns
+    intersected with the radius bbox, its rows clipped to the band
+    [row_lo, row_hi) (the whole grid by default). Returns
     (ntx, nty, tx0, ty0, nx, wt, n_tiles, n_capped)."""
     ntx = cdiv(width, ts)
     nty = cdiv(height, ts)
+    row_hi = nty if row_hi is None else row_hi
     valid = (radii > 0) & (opacities >= OPACITY_CULL)
     r = radii.to(torch.float32)
     mx, my = means2d[:, 0], means2d[:, 1]
@@ -225,8 +235,8 @@ def _tile_rects(means2d, conics, opacities, radii, width, height, ts, max_t):
     ye = torch.minimum(r, torch.sqrt(Q * ca_s / det_s) + _WINDOW_EPS)
     tx0 = torch.clamp(torch.floor((mx - xe) / ts), 0, ntx).to(torch.int32)
     tx1 = torch.clamp(torch.ceil((mx + xe) / ts), 0, ntx).to(torch.int32)
-    ty0 = torch.clamp(torch.floor((my - ye) / ts), 0, nty).to(torch.int32)
-    ty1 = torch.clamp(torch.ceil((my + ye) / ts), 0, nty).to(torch.int32)
+    ty0 = torch.clamp(torch.floor((my - ye) / ts), row_lo, row_hi).to(torch.int32)
+    ty1 = torch.clamp(torch.ceil((my + ye) / ts), row_lo, row_hi).to(torch.int32)
     zero = torch.zeros_like(tx0)
     nx = torch.where(valid, torch.clamp_min(tx1 - tx0, 0), zero)
     ny = torch.where(valid, torch.clamp_min(ty1 - ty0, 0), zero)
@@ -385,17 +395,6 @@ def pack_soa(records: torch.Tensor, gid: torch.Tensor, pad: int,
 pack_soa.launches = 0
 
 
-def check_binning_mode(class_budgets=None, depth_bits: int = 0,
-                       sort_buckets: int = 0, sort_bands: int = 0) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of a binning
-    mode the port does not have yet (the dense and compact layouts, sorted
-    flat or through ``sort_buckets``, are ported)."""
-    if depth_bits:
-        raise NotImplementedError("depth_bits sort keys: ROADMAP queue 1, item 9")
-    if sort_bands:
-        raise NotImplementedError("sort_bands binning: ROADMAP queue 1, item 9")
-
-
 @functools.lru_cache(maxsize=4)
 def _compact_layout(budgets: Tuple[int, ...], max_t: int, device: torch.device):
     """The static part of the compact layout, on ``device``, built once per
@@ -472,18 +471,22 @@ def compact_slots(tx0, ty0, nx, wt, n_capped, ellipse, ntx: int, ts: int, T: int
 
 
 def binning_slots(means2d, conics, opacities, radii, width: int, height: int, tile_size: int,
-                  max_tiles_per_gaussian: int, class_budgets=None):
+                  max_tiles_per_gaussian: int, class_budgets=None, row_lo: int = 0,
+                  row_hi: Optional[int] = None):
     """The slots' tiles: ``(tile_key (M,) int32, slot_gid, n_dropped,
     n_budget_dropped, T)``, T on a sentinel slot, with the tiles lost to the
     max_t cap and to the class budgets. Dense layout (``class_budgets``
     None): slots laid out (max_t, N), slot s * N + g being slot s of
     gaussian g, ``slot_gid`` None (the gaussian is the slot mod N) and no
     budget drop. Compact layout: ``compact_slots``, ``slot_gid`` the (M,)
-    int32 gaussian of each slot."""
+    int32 gaussian of each slot. ``row_lo/row_hi`` enumerate only the
+    footprints' tile rows in [row_lo, row_hi) (one band of ``sort_bands``,
+    ``tiling.py:569-581`` of the JAX package); the counters then count
+    that band."""
     ts = tile_size
     max_t = max_tiles_per_gaussian
     ntx, nty, tx0, ty0, nx, wt, n_tiles, n_capped = _tile_rects(
-        means2d, conics, opacities, radii, width, height, ts, max_t)
+        means2d, conics, opacities, radii, width, height, ts, max_t, row_lo, row_hi)
     T = ntx * nty
     n_dropped = torch.sum(n_tiles - n_capped)
     ell = (means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1], conics[:, 2], opacities)
@@ -498,25 +501,59 @@ def binning_slots(means2d, conics, opacities, radii, width: int, height: int, ti
     return tile_key, None, n_dropped, torch.zeros_like(n_dropped), T
 
 
-def sort_slots(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
-               slot_gid: Optional[torch.Tensor] = None):
-    """The binning's sort of the slots (``binning_slots``): one stable
-    ``torch.sort`` of the int64 key ``(tile << 32) | depth bits``. A slot's
-    gaussian is ``slot_gid[s]`` (compact layout) or, with ``slot_gid``
-    None, ``s % N`` (the dense (max_t, N) layout). Returns ``(tile_starts
-    (T + 1,) int32, gid (M,) int32)``: the per-tile segment starts,
-    ``tile_starts[T]`` being n_isect, and the gaussian of each sorted
-    slot."""
+def slot_sort_key(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
+                  slot_gid: Optional[torch.Tensor] = None, depth_bits: int = 0):
+    """The binning's sort key of the slots (``binning_slots``) and the key
+    of tile t's first possible entry divided by t: the int64 ``(tile << 32)
+    | depth bits`` (depth bits in float total order) and 2^32, or with
+    ``depth_bits = b > 0`` the int32 ``tile * 2^b + qd`` and 2^b
+    (``tiling.py:522-535`` of the JAX package): qd the depth quantized to
+    2^b - 1 levels between the real slots' smallest and largest depth, 0 on
+    a sentinel slot. A slot's gaussian is ``slot_gid[s]`` (compact layout)
+    or, with ``slot_gid`` None, ``s % N`` (the dense (max_t, N) layout)."""
     N = depths.shape[0]
-    bits = _float_order_bits(depths)
     if slot_gid is None:
-        depth_key = bits.expand(tile_key.shape[0] // N, N).reshape(-1)
+        def per_slot(x):
+            return x.expand(tile_key.shape[0] // N, N).reshape(-1)
     else:
-        depth_key = bits[slot_gid.long()]
-    key_sorted, order = torch.sort((tile_key.to(torch.int64) << 32) | depth_key, stable=True)
-    query = torch.arange(T + 1, dtype=torch.int64, device=tile_key.device)
-    tile_starts = torch.searchsorted(key_sorted >> 32, query).to(torch.int32)
-    gid = torch.remainder(order, N) if slot_gid is None else slot_gid[order]
+        sg = slot_gid.long()
+
+        def per_slot(x):
+            return x[sg]
+    if not depth_bits:
+        return (tile_key.to(torch.int64) << 32) | per_slot(_float_order_bits(depths)), 1 << 32
+    if not (T + 1) < (1 << (31 - depth_bits)):
+        raise ValueError(f"tile grid of {T} tiles too large for a {depth_bits}-bit depth in "
+                         f"an int32 sort key")
+    levels = (1 << depth_bits) - 1
+    depth = per_slot(depths.to(torch.float32))
+    real = tile_key < T
+    inf = torch.tensor(float("inf"), device=tile_key.device)
+    dmin = torch.amin(torch.where(real, depth, inf))
+    dmax = torch.amax(torch.where(real, depth, -inf))
+    # float32 in the JAX order: subtract, then multiply by the scale. With
+    # no real slot the scale is finite and every qd clamps to 0.
+    scale = levels / torch.clamp_min(dmax - dmin, 1e-20)
+    qd = torch.clamp((depth - dmin) * scale, 0, levels).to(torch.int32)
+    return tile_key * (1 << depth_bits) + torch.where(real, qd, 0), 1 << depth_bits
+
+
+def sort_slots(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
+               slot_gid: Optional[torch.Tensor] = None, depth_bits: int = 0,
+               tiles: Optional[Tuple[int, int]] = None):
+    """The binning's sort of the slots: one stable ``torch.sort`` of
+    ``slot_sort_key``. Returns ``(tile_starts, gid (M,) int32)``: the
+    segment starts of the tiles in ``tiles = (t0, t1)`` and of t1, ``(t1 -
+    t0 + 1,)`` int32 (all T tiles and ``tile_starts[T]`` = n_isect by
+    default), and the gaussian of each sorted slot."""
+    t0, t1 = (0, T) if tiles is None else tiles
+    key, unit = slot_sort_key(tile_key, depths, T, slot_gid, depth_bits)
+    key_sorted, order = torch.sort(key, stable=True)
+    # A key is >= t * unit exactly when its tile is >= t: no pass over the
+    # keys to extract their tiles.
+    query = torch.arange(t0, t1 + 1, dtype=key.dtype, device=key.device) * unit
+    tile_starts = torch.searchsorted(key_sorted, query).to(torch.int32)
+    gid = torch.remainder(order, depths.shape[0]) if slot_gid is None else slot_gid[order]
     return tile_starts, gid.to(torch.int32)
 
 
@@ -546,32 +583,93 @@ def isect_and_sort(
     the compact layout of ``total_slots(N, max_t, class_budgets)`` slots,
     whose overflow is counted in ``n_budget_dropped``.
 
+    ``depth_bits = b > 0`` sorts one int32 key with the depth quantized to
+    b bits (``sort_slots``); the exact (tile, depth) order stays on the
+    bucket and band paths, which ignore it, as the JAX package does.
+
     ``sort_buckets = B > 0`` (a power of two) sorts through the bucket
     partition by ``tile % B`` with ``bucket_headroom`` times the balanced
     share of each 512-slot chunk per bucket (``_bucket_binned``); bucket
     overflow is counted in ``n_bucket_dropped`` and left out of
-    ``n_isect``."""
-    check_binning_mode(class_budgets, depth_bits, sort_buckets, sort_bands)
+    ``n_isect``.
+
+    ``sort_bands = K > 1`` bins K bands of tile rows on their own
+    (``_band_binned``); exclusive with ``sort_buckets``."""
     N = means2d.shape[0]
     if N >= (1 << 24):
         raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
     max_t = max_tiles_per_gaussian
+    records = quantity_records(means2d, conics, colors, opacities, depths)
+    if sort_bands > 1:
+        if sort_buckets:
+            raise ValueError("sort_bands and sort_buckets are exclusive")
+        return _band_binned(means2d, conics, opacities, depths, radii, records, width, height,
+                            tile_size, chunk, max_t, class_budgets, int(sort_bands))
 
     tile_key, slot_gid, n_dropped, n_budget_dropped, T = binning_slots(
         means2d, conics, opacities, radii, width, height, tile_size, max_t, class_budgets)
     n_isect = torch.sum(tile_key < T)
     n_dropped = n_dropped.to(n_isect.dtype)
     n_budget_dropped = n_budget_dropped.to(n_isect.dtype)
-    records = quantity_records(means2d, conics, colors, opacities, depths)
     if sort_buckets:
         return _bucket_binned(tile_key, slot_gid, depths, records, T, chunk,
                               int(sort_buckets), float(bucket_headroom), n_isect, n_dropped,
                               n_budget_dropped)
 
-    tile_starts, gid = sort_slots(tile_key, depths, T, slot_gid)
+    tile_starts, gid = sort_slots(tile_key, depths, T, slot_gid, int(depth_bits))
     counts = tile_starts[1:] - tile_starts[:-1]
     soa = pack_soa(records, gid, pad=2 * chunk, n_live=tile_starts[T:])
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=counts,
+                       n_isect=n_isect, n_dropped=n_dropped,
+                       n_budget_dropped=n_budget_dropped,
+                       n_bucket_dropped=torch.zeros_like(n_isect))
+
+
+def _band_binned(means2d, conics, opacities, depths, radii, records, width, height, ts,
+                 chunk, max_t, class_budgets, K):
+    """Band-split binning (``tiling.py:704-784`` of the JAX package): K
+    bands of ``cdiv(nty, K)`` tile rows, each enumerated (footprints
+    clipped to its rows, the tile cap and the shared class budgets applied
+    per band) and sorted on its own with the flat path's exact key, the K
+    sorted streams concatenated in band order. Band k holds the tiles
+    [lo ntx, hi ntx), so the concatenation is in global tile order; each
+    band's sentinel slots sink to its tail, inside the stream, and
+    ``tile_starts[T]`` is the stream length K M. Counts come per band, the
+    counters are summed over the bands, and ``pack_soa`` runs once over the
+    concatenated gid with no ``n_live``. A band past the last tile row
+    (K > nty, or K not dividing nty) holds no tile: its M slots are all
+    sentinels and are neither enumerated nor sorted."""
+    ntx, nty = cdiv(width, ts), cdiv(height, ts)
+    T = ntx * nty
+    dev = means2d.device
+    M = total_slots(means2d.shape[0], max_t, class_budgets)
+    if K * M >= (1 << 31):
+        raise ValueError(f"{K} bands of {M} slots overflow the int32 segment starts")
+    band_h = cdiv(nty, K)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    n_isect, n_dropped, n_budget_dropped = zero, zero, zero
+    starts, counts, gids = [], [], []
+    for k in range(K):
+        lo, hi = min(k * band_h, nty), min((k + 1) * band_h, nty)
+        if lo == hi:
+            gids.append(torch.zeros((M,), dtype=torch.int32, device=dev))
+            continue
+        tile_key, slot_gid, nd, nbd, _ = binning_slots(
+            means2d, conics, opacities, radii, width, height, ts, max_t, class_budgets,
+            row_lo=lo, row_hi=hi)
+        n_isect = n_isect + torch.sum(tile_key < T)
+        n_dropped = n_dropped + nd
+        n_budget_dropped = n_budget_dropped + nbd
+        ss, gid = sort_slots(tile_key, depths, T, slot_gid, tiles=(lo * ntx, hi * ntx))
+        del tile_key, slot_gid
+        starts.append(ss[:-1] + k * M)
+        counts.append(ss[1:] - ss[:-1])
+        gids.append(gid)
+    tile_starts = torch.cat(starts + [torch.full((1,), K * M, dtype=torch.int32, device=dev)])
+    gid = torch.cat(gids)
+    del gids
+    soa = pack_soa(records, gid, pad=2 * chunk)
+    return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=torch.cat(counts),
                        n_isect=n_isect, n_dropped=n_dropped,
                        n_budget_dropped=n_budget_dropped,
                        n_bucket_dropped=torch.zeros_like(n_isect))

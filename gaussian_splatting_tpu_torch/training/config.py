@@ -3,8 +3,7 @@
 name and default, so a configuration means the same in both packages.
 
 ``backend`` takes the port's names: ``auto`` (= ``cuda``), ``cuda`` or
-``ref``. The binning modes the port has not ported yet (``sort_depth_bits``,
-``sort_bands``) raise ``NotImplementedError`` where a render reads them. A
+``ref``. A
 mesh (``mesh_data * mesh_tile > 1``) trains through
 ``parallel/sharded_step.py``, one process a device. The video fields
 (``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) are read by
@@ -84,14 +83,19 @@ class TrainingConfig:
     # per-class budgets (class_budgets); overflow is counted every step
     # (stats/n_budget_dropped) and rebudgeted with escalating headroom.
     binning: str = "auto"              # auto | compact | dense
-    # Not ported yet; nonzero raises NotImplementedError.
+    # b > 0: the flat sort's key is one int32, tile * 2^b + the depth
+    # quantized to b bits over the view's real slots (only the blend order
+    # of nearly equal depths changes). Ignored by sort_buckets and
+    # sort_bands, which keep the exact (tile, depth) order.
     sort_depth_bits: int = 0
     # B > 0 (a power of two): binning through the bucket partition by
     # tile % B, each 512-slot chunk given partition_headroom times its
     # balanced share per bucket; overflow is counted in n_budget_dropped.
     sort_buckets: int = 0
     partition_headroom: float = 1.5
-    # Not ported yet; nonzero raises NotImplementedError.
+    # K > 1: K horizontal bands of tile rows binned and sorted on their
+    # own, each with the full class budgets (the stream holds K times the
+    # slots); exclusive with sort_buckets.
     sort_bands: int = 0
     # >1: the gradient reduce sorts K static slices separately and adds the
     # per-slice segment sums.

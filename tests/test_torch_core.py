@@ -1,5 +1,5 @@
-"""PyTorch port, ``core/``: activations, quaternions, spherical harmonics
-and cameras against the JAX package on the same numpy inputs: rtol 1e-6,
+"""PyTorch port, ``core/``: activations, quaternions, spherical harmonics,
+cameras and the SE(3) rotation angle against the JAX package on the same numpy inputs: rtol 1e-6,
 plus atol 1e-6 (a few float32 ulps of the O(1) terms) for values that
 cancel to near zero, where rtol alone would compare rounding noise."""
 
@@ -9,10 +9,12 @@ import pytest
 import gaussian_splatting_tpu.core.activations as j_act
 import gaussian_splatting_tpu.core.cameras as j_cam
 import gaussian_splatting_tpu.core.quaternions as j_quat
+import gaussian_splatting_tpu.core.se3 as j_se3
 import gaussian_splatting_tpu.core.sh as j_sh
 import gaussian_splatting_tpu_torch.core.activations as t_act
 import gaussian_splatting_tpu_torch.core.cameras as t_cam
 import gaussian_splatting_tpu_torch.core.quaternions as t_quat
+import gaussian_splatting_tpu_torch.core.se3 as t_se3
 import gaussian_splatting_tpu_torch.core.sh as t_sh
 from torch_parity import to_jax, to_torch
 
@@ -87,3 +89,14 @@ def test_camera_properties():
     _close(tc.cam_to_world, jc.cam_to_world)
     assert tc.focal[0] == float(jc.focal[0]) and tc.focal[1] == float(jc.focal[1])
     assert t_cam.focal_from_heuristic(64, 48) == j_cam.focal_from_heuristic(64, 48)
+
+
+def test_projection_matrix_and_rotation_angle(rng):
+    K_np = np.stack([np.asarray(j_cam.make_intrinsics(64, 48)),
+                     np.asarray(j_cam.make_intrinsics(40, 30, focal_px=33.0))])
+    _close(t_cam.projection_matrix(*to_torch(K_np), 64, 48),
+           j_cam.projection_matrix(*to_jax(K_np), 64, 48))
+    q = rng.normal(size=(30, 4)).astype(np.float32)
+    R = np.asarray(j_quat.quat_to_rotmat(*to_jax(q / np.linalg.norm(q, axis=-1, keepdims=True))))
+    _close(t_se3.se3_log_rot_angle(*to_torch(R)), j_se3.se3_log_rot_angle(*to_jax(R)),
+           rtol=1e-5, atol=1e-5)

@@ -52,3 +52,13 @@ def test_opacity_aware_radii_shrink(rng):
     r3 = t_project(*args, 64, 48).radii.numpy()
     ro = t_project(*args, 64, 48, opacities=to_torch(opac)[0]).radii.numpy()
     assert (ro <= r3).all() and (ro < r3).any()
+
+
+def test_compute_cov3d_matches_jax(rng):
+    from gaussian_splatting_tpu.ops.projection import compute_cov3d as j_cov
+    from gaussian_splatting_tpu_torch.ops.projection import compute_cov3d as t_cov
+
+    q = rng.normal(size=(40, 4)).astype(np.float32)
+    s = rng.uniform(0.05, 0.5, size=(40, 3)).astype(np.float32)
+    np.testing.assert_allclose(t_cov(*to_torch(q, s)).numpy(), np.asarray(j_cov(*to_jax(q, s))),
+                               rtol=1e-5, atol=1e-7)

@@ -142,13 +142,6 @@ def test_class_caps_total_slots_and_exact_counts(rng):
         exact_tile_counts(m, r, 64, 48, 16, conics=c, opacities=o))
 
 
-@pytest.mark.parametrize("kw", [{"depth_bits": 16}, {"sort_bands": 2}])
-def test_unported_binning_modes_raise(rng, kw):
-    args = to_torch(*screen_gaussians(rng, 10, 32, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tiling.isect_and_sort(*args, 32, 32, 16, 128, 16, **kw)
-
-
 def _assert_same_bucket_binning(jb, tb):
     """Tables, counters and every segment of the SoA equal. The layout has
     pad columns between segments (JAX: zeros; the port: gaussian 0's rows,

@@ -182,6 +182,15 @@ def test_train_step_with_class_budgets_matches_jax(rng):
     _assert_step_matches_jax(rng, False, class_budgets=(160, 160, 128, 128, 128, 128, 128, 128))
 
 
+@pytest.mark.parametrize("cfg", [
+    {"sort_bands": 2, "class_budgets": (160, 160, 128, 128, 128, 128, 128, 128)},
+    {"sort_depth_bits": 16}])
+def test_train_step_with_binning_modes_matches_jax(rng, cfg):
+    """The same with band-split binning on class budgets (each band
+    enumerated under the full budgets) and with quantized depth keys."""
+    _assert_step_matches_jax(rng, False, **cfg)
+
+
 def _assert_step_matches_jax(rng, poses, **cfg):
     n_views = 3 if poses else 0
     arrays = train_state_arrays(rng, 150, n_views=n_views)
