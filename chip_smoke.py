@@ -152,6 +152,29 @@ Phases (any failure exits nonzero and prints no result):
    beside the flat compact binning; dense bands at K = 2 the same way; then
    4 steps with ``sort_bands=4`` beside the flat compact step in turns.
    Kernels #1-#7 must launch through the entry points of the phase.
+12. the settings the port used to refuse (``wide_settings_phase``, run after
+   phase 11; alone: ``wide_alone``) at training view 0 and on the render and
+   training paths, 1M gaussians at 1920x1080: the bucket binning at
+   ``sort_buckets`` 64 (more buckets than a warp has lanes) and 2048 (quantum
+   1, a window of 4C) at the default headroom, the partition against its
+   plain version (key, gid, counts and drops exact), kept + dropped equal to
+   the dense n_isect, and the forward and the backward + reduce against
+   their plain versions on that bucket layout; at 64 with headroom 4 (no
+   drop) the forward equal to the dense one bit for bit; the raster chunks
+   2048 and 8192 (staged 256 entries at a time) on the dense layout,
+   kernels #1-#7 against their plain versions there (n_written and
+   n_dropped equal, the queue forward equal to the loop forward bit for
+   bit); each of those kernels timed in turns with the old setting (B 8,
+   chunk 256); one chunk-2048 ``render``, a loop and a queue forward +
+   backward through ``rasterize_tiled`` at chunk 2048, and 4 steps each of
+   ``make_train_step`` with ``sort_buckets=64`` and with
+   ``raster_chunk=2048`` in turns with dense steps (falling finite losses,
+   no gradient entry dropped), every kernel launched; then deep tiles (``deep_tiles_phase``):
+   3,000 entries a tile at tile sizes 8, 16 and 32 whose pixels stop inside
+   the first stage of the first chunk, at chunk 2048 and 8192, against the
+   plain versions, nothing blended after the stop within a chunk.
+   ``parent_alone(DIR)`` holds the old settings' kernels of another
+   checkout against this one's, outputs and times in turns.
 
 Output: the kernels JSON line (each row also with ``kernel_ms``, the
 kernel's profiler time, ``trainer_launches``, its launches in phase 8,
@@ -159,7 +182,10 @@ kernel's profiler time, ``trainer_launches``, its launches in phase 8,
 ``mesh_launches``, in phase 10's sharded steps and trainer, and
 ``binning_modes_launches`` / ``binning_modes_max_abs_err``, its launches
 through phase 11's entry points and its largest error against its plain
-version on phase 11's layouts),
+version on phase 11's layouts, and for the raster kernels and the
+partition ``wide_settings``: phase 12's ms, largest error and bound at each
+new setting, with ``old_setting_ms_in_turns`` beside them, and
+``wide_launches``, its launches through phase 12's entry points),
 the card's name and power limit (``nvidia-smi``), then ``{"ok": true,
 "device": {...}}`` as the last line.
 """
@@ -186,6 +212,10 @@ BUCKETS, BUCKET_HEADROOM, BUCKET_STEPS = 8, 1.5, 4
 # (dense bands at the first only) and trained BAND_STEPS steps at the last.
 DEPTH_BITS, DEPTH_BITS_IMAGE_ATOL = 16, 2e-3
 BANDS, BAND_STEPS = (2, 4), 4
+# Phase 12, the settings the port used to refuse: the bucket counts above a
+# warp's 32 lanes, the chunks above the 1024 entries the kernels stage whole,
+# the steps at each, and the entries a tile of its deep tiles.
+WIDE_BUCKETS, WIDE_CHUNKS, WIDE_STEPS, DEEP_PER_TILE = (64, 2048), (2048, 8192), 4, 3000
 # The cube [-1, 1]^3 the seeded scene fills: the trainer's scene extent.
 SCENE_EXTENT = 2.0
 # Intersection counts of the bench scene recorded by the JAX package
@@ -461,7 +491,7 @@ def compare_counts(args_dev, b):
     torch.cuda.empty_cache()
 
 
-def compare_kernels(sargs, b, tag, depth_bits=0, gid=None):
+def compare_kernels(sargs, b, tag, depth_bits=0, gid=None, chunk=CHUNK):
     """Both forward-path kernels against their plain versions on the dense
     binning ``b`` of screen-space inputs ``sargs``, with the sort's own gid
     (on ``depth_bits`` keys): pack exact, with ``n_live`` (the binning's
@@ -469,8 +499,9 @@ def compare_kernels(sargs, b, tag, depth_bits=0, gid=None):
     bit for bit to the forward on the full-gather plain SoA, and within
     atol 1e-5 (rgb, sum_w) / 1e-4 (depth) of its plain version. With
     ``gid`` (the band layout's, its sentinel runs inside the stream) the
-    pack gathers every column of it, as the binning does. Returns a dict of
-    the errors, outputs and the pack's inputs."""
+    pack gathers every column of it, as the binning does. ``chunk`` is the
+    binning's and the forward's. Returns a dict of the errors, outputs and
+    the pack's inputs."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import fwd_tiles, fwd_tiles_plain
@@ -481,8 +512,8 @@ def compare_kernels(sargs, b, tag, depth_bits=0, gid=None):
     n_live = None
     if gid is None:
         gid, n_live = dense_gid(sargs, depth_bits)
-    k_soa = pack_soa(records, gid, 2 * CHUNK, n_live)
-    p_soa = pack_soa_plain(records, gid, 2 * CHUNK, n_live)
+    k_soa = pack_soa(records, gid, 2 * chunk, n_live)
+    p_soa = pack_soa_plain(records, gid, 2 * chunk, n_live)
     torch.cuda.synchronize()
     pack_err = float((k_soa - p_soa).abs().max())
     if not torch.equal(k_soa, p_soa):
@@ -493,8 +524,8 @@ def compare_kernels(sargs, b, tag, depth_bits=0, gid=None):
         live, p_full = gid.shape[0], p_soa
     else:
         del p_soa
-        k_full = pack_soa(records, gid, 2 * CHUNK)
-        p_full = pack_soa_plain(records, gid, 2 * CHUNK)
+        k_full = pack_soa(records, gid, 2 * chunk)
+        p_full = pack_soa_plain(records, gid, 2 * chunk)
         torch.cuda.synchronize()
         live = int(n_live)
         if not (torch.equal(k_full, p_full)
@@ -505,10 +536,10 @@ def compare_kernels(sargs, b, tag, depth_bits=0, gid=None):
     del k_soa
 
     ntx = -(-WIDTH // TILE)
-    k_out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK)
-    same = torch.equal(k_out, fwd_tiles(b.tile_starts, b.counts, p_full, TILE, ntx, CHUNK))
+    k_out = fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, chunk)
+    same = torch.equal(k_out, fwd_tiles(b.tile_starts, b.counts, p_full, TILE, ntx, chunk))
     del p_full
-    p_out, pairs = fwd_tiles_plain(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, CHUNK)
+    p_out, pairs = fwd_tiles_plain(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx, chunk)
     torch.cuda.synchronize()
     diff = (k_out - p_out).abs()
     err_rgbw = float(torch.cat([diff[:, 0:3], diff[:, 4:8]], 1).max())
@@ -604,12 +635,13 @@ def grad_errors(k, p):
     return stats, ok
 
 
-def compare_backward(b, fwd_out, n, tag, seed=0, gcap=None):
+def compare_backward(b, fwd_out, n, tag, seed=0, gcap=None, chunk=CHUNK):
     """Phase 2b: the backward kernel + the kernel reduce against their
     plain versions on binning ``b`` under a seeded cotangent, then
     ``pack_rows`` and ``segsum`` against their plain versions on the
     kernel's stream; the stream's capacity ``gcap`` (the dense one by
-    default). Returns the errors and the inputs the timings use."""
+    default), ``chunk`` the binning's. Returns the errors and the inputs the
+    timings use."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
@@ -620,15 +652,15 @@ def compare_backward(b, fwd_out, n, tag, seed=0, gcap=None):
         pack_rows, pack_rows_plain, reduce_padded_grads, sorted_gid_key)
 
     ntx = -(-WIDTH // TILE)
-    gcap = grad_cap(n, MAX_T, CHUNK) if gcap is None else gcap
+    gcap = grad_cap(n, MAX_T, chunk) if gcap is None else gcap
     gen = torch.Generator(device=fwd_out.device).manual_seed(seed)
     gout = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
     gout[:, 5:] = 0.0  # rows the image never reads have no cotangent
     k_grad, k_meta = bwd_tiles(b.tile_starts, b.counts, b.sorted_soa, gout, fwd_out,
-                               TILE, ntx, CHUNK, n, gcap)
+                               TILE, ntx, chunk, n, gcap)
     k_sums = reduce_padded_grads(k_grad, n, k_meta[0], with_depth=True)
     p_grad, p_meta, active = bwd_tiles_plain(b.tile_starts, b.counts, b.sorted_soa, gout,
-                                             fwd_out, TILE, ntx, CHUNK, n, gcap)
+                                             fwd_out, TILE, ntx, chunk, n, gcap)
     p_sums = plain_reduce(p_grad, n, p_meta[0], with_depth=True)
     torch.cuda.synchronize()
     del p_grad
@@ -686,19 +718,19 @@ def compare_backward(b, fwd_out, n, tag, seed=0, gcap=None):
             "gcap": gcap}
 
 
-def queue_for(b, w_cap=None):
+def queue_for(b, w_cap=None, chunk=CHUNK):
     """The chunk queue of binning ``b`` at the rasterizer's capacity
     ``w_cap`` (the dense one, ``N max_t // chunk + T``, by default), n_work
     as a (1,) tensor."""
     from gaussian_splatting_tpu_torch.ops.tiling import chunk_queue
 
     if w_cap is None:
-        w_cap = N_GAUSSIANS * MAX_T // CHUNK + b.counts.shape[0]
-    wtile, cum, n_work = chunk_queue(b.counts, CHUNK, w_cap)
+        w_cap = N_GAUSSIANS * MAX_T // chunk + b.counts.shape[0]
+    wtile, cum, n_work = chunk_queue(b.counts, chunk, w_cap)
     return wtile, cum, n_work.reshape(1)
 
 
-def compare_queue(b, fwd_out, plain_out, bwd, n, tag, w_cap=None):
+def compare_queue(b, fwd_out, plain_out, bwd, n, tag, w_cap=None, chunk=CHUNK):
     """The queue kernels on binning ``b``: the queue forward (the kernel
     writes empty tiles' zero blocks) equal to the loop kernel's ``fwd_out``
     bit for bit, hence inside the loop forward's gates against the plain
@@ -713,10 +745,10 @@ def compare_queue(b, fwd_out, plain_out, bwd, n, tag, w_cap=None):
     from gaussian_splatting_tpu_torch.ops.tiling import reduce_padded_grads
 
     ntx = -(-WIDTH // TILE)
-    wtile, cum, n_work = queue_for(b, w_cap)
-    check_queue(wtile, cum, n_work, b.counts, CHUNK)
+    wtile, cum, n_work = queue_for(b, w_cap, chunk)
+    check_queue(wtile, cum, n_work, b.counts, chunk)
     q_out = fwd_tiles_q(wtile, cum, b.tile_starts, b.counts, n_work, b.sorted_soa, TILE,
-                        ntx, CHUNK)
+                        ntx, chunk)
     torch.cuda.synchronize()
     fwd_err = float((q_out - plain_out).abs().max())
     same = torch.equal(q_out, fwd_out)
@@ -726,7 +758,7 @@ def compare_queue(b, fwd_out, plain_out, bwd, n, tag, w_cap=None):
     if not same:
         fail(f"[{tag}] the queue forward differs from the loop forward")
     k_grad, k_meta = bwd_tiles_q(wtile, cum, b.tile_starts, b.counts, n_work, b.sorted_soa,
-                                 bwd["gout"], fwd_out, TILE, ntx, CHUNK, n, bwd["gcap"])
+                                 bwd["gout"], fwd_out, TILE, ntx, chunk, n, bwd["gcap"])
     k_sums = reduce_padded_grads(k_grad, n, k_meta[0], with_depth=True)
     torch.cuda.synchronize()
     del k_grad
@@ -741,7 +773,7 @@ def compare_queue(b, fwd_out, plain_out, bwd, n, tag, w_cap=None):
     return {"fwd_q_err": fwd_err, "bwd_q_err": max(st["max_err"] for st in stats.values())}
 
 
-def compare_partition(sargs, b, fwd_out, bwd, tag):
+def compare_partition(sargs, b, fwd_out, bwd, tag, buckets=BUCKETS, headroom=BUCKET_HEADROOM):
     """Phase 5b, checks: the fused partition kernel (``bucket_partition``)
     against its plain version on the dense slots' tiles and the depths at
     these screen-space inputs (key, gid, counts and drops exact); the bucket
@@ -749,8 +781,11 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
     and, with no drop, on the bucket (gapped) layout: the forward equal to
     the dense ``fwd_out`` bit for bit, and the backward kernel + kernel
     reduce under ``compare_backward``'s cotangent against its plain sums
-    and meta (``bwd``) under the backward's gates. Returns the partition's
-    inputs, quantum, outputs, drop count and the bucket binning's gid."""
+    and meta (``bwd``) under the backward's gates; with drops, the forward
+    and the backward + reduce against their plain versions on the bucket
+    layout itself. ``buckets`` and ``headroom`` are the binning's. Returns
+    the partition's inputs, quantum, outputs, drop count, the bucket
+    binning's gid and the errors on its layout."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.partition import (
@@ -762,29 +797,40 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
     means2d, conics, _, opac, depths, radii = sargs
     tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
                                          MAX_T)
-    q = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
-    k_out = bucket_partition(tile_key, depths, T, BUCKETS, q, C=BUCKET_C)
-    p_out = bucket_partition_plain(tile_key, depths, T, BUCKETS, q, C=BUCKET_C)
+    q = quantum_for(BUCKET_C, buckets, headroom)
+    k_out = bucket_partition(tile_key, depths, T, buckets, q, C=BUCKET_C)
+    p_out = bucket_partition_plain(tile_key, depths, T, buckets, q, C=BUCKET_C)
     torch.cuda.synchronize()
     exact = all(torch.equal(a, c) for a, c in zip(k_out, p_out))
     diff = [int((a != c).sum()) for a, c in zip(k_out, p_out)]
     err = max(float((a.double() - c.double()).abs().max()) for a, c in zip(k_out, p_out))
     del p_out
-    log(f"[{tag}] bucket partition kernel, {tile_key.shape[0]} slots, B {BUCKETS}, quantum "
+    counts = k_out[2].tolist() if buckets <= 64 else f"sum {int(k_out[2].sum())}"
+    drops = k_out[3].tolist() if buckets <= 64 else f"sum {int(k_out[3].sum())}"
+    log(f"[{tag}] bucket partition kernel, {tile_key.shape[0]} slots, B {buckets}, quantum "
         f"{q}, (B, cap) = {tuple(k_out[0].shape)}: key, gid, counts, drops equal to plain: "
-        f"{exact} (entries differing {diff}); counts {k_out[2].tolist()}, drops "
-        f"{k_out[3].tolist()}")
+        f"{exact} (entries differing {diff}); counts {counts}, drops {drops}")
     if not exact:
         fail(f"[{tag}] bucket partition kernel differs from bucket_partition_plain")
 
-    bb = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=BUCKETS,
-                        bucket_headroom=BUCKET_HEADROOM)
+    bb = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, sort_buckets=buckets,
+                        bucket_headroom=headroom)
     n_b, n_drop, n_dense = int(bb.n_isect), int(bb.n_bucket_dropped), int(b.n_isect)
     log(f"[{tag}] bucket binning: n_isect {n_b} + n_bucket_dropped {n_drop} = {n_b + n_drop} "
         f"(dense n_isect {n_dense}); tile_starts[T] {int(bb.tile_starts[-1])}")
     if n_b + n_drop != n_dense or int(k_out[3].sum()) != n_drop:
         fail(f"[{tag}] the bucket binning lost or gained intersections")
-    if n_drop == 0:
+    layout_errs = {}
+    if n_drop:
+        # Another image than the dense one: held against the plain versions
+        # on its own (gapped) layout.
+        kc = compare_kernels(sargs, bb, f"{tag}, bucket layout", gid=bb.sorted_soa[11].to(
+            torch.int32)[:k_out[0].numel()].contiguous())
+        bwl = compare_backward(bb, kc["fwd_out"], N_GAUSSIANS, f"{tag}, bucket layout",
+                               seed=1, gcap=bwd["gcap"])
+        layout_errs = {"rasterize_fwd": kc["fwd_err"], "rasterize_bwd": bwl["bwd_err"]}
+        del kc, bwl
+    else:
         ntx = -(-WIDTH // TILE)
         bo = fwd_tiles(bb.tile_starts, bb.counts, bb.sorted_soa, TILE, ntx, CHUNK)
         torch.cuda.synchronize()
@@ -813,7 +859,7 @@ def compare_partition(sargs, b, fwd_out, bwd, tag):
     gid_b = bb.sorted_soa[11, :k_out[0].numel()].to(torch.int32)
     del bb
     return {"tile_key": tile_key, "depths": depths, "q": q, "T": T, "out": k_out,
-            "err": err, "n_drop": n_drop, "gid": gid_b}
+            "err": err, "n_drop": n_drop, "gid": gid_b, "layout_errs": layout_errs}
 
 
 def bucket_train_phase(dev, scene, views, images):
@@ -2094,6 +2140,408 @@ def modes_alone():
     log(f"[binning modes] phase 11 alone: errors {rep['errs']}")
 
 
+def deep_tiles(seed, ts, ntx, nty, per_tile):
+    """``per_tile`` entries in each tile of a ntx x nty tile image, as the
+    raster kernels take them (tile_starts, counts, a (16, M) SoA with rows
+    10 = 1 and 11 = entry index, numpy), every one covering its whole tile
+    (isotropic, sigma 2 ts, the mean inside the tile): entries [0, 256),
+    opacity 0.3-0.6 and blue, take every pixel's transmittance below 1e-4
+    within their first few dozen, inside the first 256-entry stage of the
+    first chunk; entries [256, 2048), opacity 0.02-0.05 and red, would count
+    only if a stage boundary started the stop rule again; entries from 2048
+    on, opacity 0.02-0.3 and green, are the second chunk at chunk 2048,
+    where the pixels do start again."""
+    rng = np.random.default_rng(seed)
+    n = ntx * nty * per_tile
+    tile = np.repeat(np.arange(ntx * nty), per_tile)
+    k = np.tile(np.arange(per_tile), ntx * nty)
+    ox, oy = (tile % ntx) * ts, (tile // ntx) * ts
+    means = np.stack([ox + rng.uniform(0.0, ts, size=n), oy + rng.uniform(0.0, ts, size=n)])
+    ci = np.full(n, 1.0 / (2.0 * ts) ** 2)
+    op = np.where(k < 256, rng.uniform(0.3, 0.6, size=n),
+                  np.where(k < 2048, rng.uniform(0.02, 0.05, size=n),
+                           rng.uniform(0.02, 0.3, size=n)))
+    rgb = np.zeros((3, n))
+    rgb[2, k < 256] = rng.uniform(0.2, 1.0, size=int((k < 256).sum()))
+    rgb[0, (k >= 256) & (k < 2048)] = 1.0
+    rgb[1, k >= 2048] = 1.0
+    soa = np.zeros((16, n + 8), np.float32)
+    soa[:10, :n] = np.concatenate([means, np.stack([ci, np.zeros(n), ci]), op[None], rgb,
+                                   rng.uniform(1.0, 10.0, size=(1, n))])
+    soa[10, :n] = 1.0
+    soa[11, :n] = np.arange(n)
+    starts = (np.arange(ntx * nty + 1) * per_tile).astype(np.int32)
+    return starts, np.full(ntx * nty, per_tile, np.int32), soa
+
+
+def deep_tiles_phase(dev):
+    """Phase 12, the stages of a long chunk: ``deep_tiles`` at tile sizes 8,
+    16 and 32 (32 tiles each), DEEP_PER_TILE entries a tile, at chunk 2048
+    (eight stages, then a second chunk) and 8192 (one chunk of twelve
+    stages): the forward against its plain version, its red row exactly 0
+    (a stage boundary that started the stop rule again would blend red
+    entries) and, at chunk 2048, some green (the pixels start again in the
+    second chunk); the queue forward equal to the loop forward bit for bit, the backward +
+    kernel reduce against the plain backward + plain reduce under the
+    backward's gates, and the meta equal. Returns the largest errors."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        bwd_tiles, bwd_tiles_plain, cdiv, fwd_tiles, fwd_tiles_plain, fwd_tiles_q)
+    from gaussian_splatting_tpu_torch.ops.tiling import chunk_queue, reduce_padded_grads
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for ts in (8, 16, 32):
+        ntx, nty = 8, 4
+        starts, counts, soa = (torch.as_tensor(x, device=dev)
+                               for x in deep_tiles(ts, ts, ntx, nty, DEEP_PER_TILE))
+        n = int(counts.sum())
+        for chunk in WIDE_CHUNKS:
+            tag = f"deep tiles ts {ts}, chunk {chunk}"
+            k_out = fwd_tiles(starts, counts, soa, ts, ntx, chunk)
+            p_out, _ = fwd_tiles_plain(starts, counts, soa, ts, ntx, chunk)
+            diff = (k_out - p_out).abs()
+            err_rgbw = float(torch.cat([diff[:, 0:3], diff[:, 4:8]], 1).max())
+            err_depth = float(diff[:, 3].max())
+            red = float(k_out[:, 0].max())
+            green = float(p_out[:, 1].max())
+            wtile, cum, n_work = chunk_queue(counts, chunk, cdiv(n, chunk) + counts.shape[0])
+            q_out = fwd_tiles_q(wtile, cum, starts, counts, n_work.reshape(1), soa, ts, ntx,
+                                chunk)
+            same = torch.equal(q_out, k_out)
+            gen = torch.Generator(device=dev).manual_seed(ts)
+            gout = torch.randn(k_out.shape, generator=gen, device=dev)
+            gout[:, 5:] = 0.0
+            gcap = cdiv(n, chunk) * chunk
+            k_grad, k_meta = bwd_tiles(starts, counts, soa, gout, k_out, ts, ntx, chunk, n,
+                                       gcap)
+            k_sums = reduce_padded_grads(k_grad, n, k_meta[0], with_depth=True)
+            p_grad, p_meta, _ = bwd_tiles_plain(starts, counts, soa, gout, k_out, ts, ntx,
+                                                chunk, n, gcap)
+            p_sums = plain_reduce(p_grad, n, p_meta[0], with_depth=True)
+            stats, ok = grad_errors(k_sums, p_sums)
+            km, pm = k_meta.tolist(), p_meta.tolist()
+            errs["fwd"] = max(errs["fwd"], err_rgbw, err_depth)
+            errs["bwd"] = max(errs["bwd"], max(st["max_err"] for st in stats.values()))
+            log(f"[{tag}] {n} entries: forward kernel vs plain max |diff| rgb/sum_w "
+                f"{err_rgbw:.3e}, depth {err_depth:.3e}; kernel's largest red (entries "
+                f"256-2047) {red:.3e}, plain's largest green (entries 2048 on) {green:.3e}; "
+                f"queue forward == "
+                f"loop forward: {same}; backward kernel + reduce vs plain: meta kernel {km}, "
+                f"plain {pm}; rel_l2 {max(st.get('rel_l2', 0.0) for st in stats.values()):.3e}")
+            if not (err_rgbw <= 1e-5 and err_depth <= 1e-4) or not bool(
+                    torch.isfinite(k_out).all()):
+                fail(f"[{tag}] forward kernel disagrees with fwd_tiles_plain")
+            if not same:
+                fail(f"[{tag}] the queue forward differs from the loop forward")
+            if km != pm or not ok or not all(bool(torch.isfinite(v).all())
+                                              for v in k_sums.values()):
+                for key, st in stats.items():
+                    log(f"[{tag}]   {key}: " + ", ".join(f"{k} {v:.3e}" for k, v in st.items()))
+                fail(f"[{tag}] backward kernel disagrees with bwd_tiles_plain")
+            if red != 0.0:
+                fail(f"[{tag}] entries after the stop blended: a stage restarted the stop rule")
+            if (chunk < DEEP_PER_TILE) != (green > 0.0):
+                fail(f"[{tag}] the second chunk's entries blended {green} (expected only when "
+                     f"there is a second chunk)")
+    return errs
+
+
+def wide_settings_phase(dev, state, scene, views, images, sargs, b, fwd_out, bw):
+    """Phase 12: the settings the port used to refuse, at full width,
+    training view 0 (screen-space inputs ``sargs``, the dense binning ``b``
+    at CHUNK, its forward ``fwd_out`` and ``compare_backward``'s report
+    ``bw``), and on the render and training paths. Returns the errors,
+    times, bounds and launches at each setting."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.partition import (
+        bucket_partition, bucket_partition_plain, quantum_for)
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        bwd_tiles, bwd_tiles_q, fwd_tiles, fwd_tiles_plain, fwd_tiles_q, rasterize_tiled)
+    from gaussian_splatting_tpu_torch.ops.render import render
+    from gaussian_splatting_tpu_torch.ops.tiling import BUCKET_C, isect_and_sort
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+
+    t_phase = time.perf_counter()
+    N, T, P = N_GAUSSIANS, b.counts.shape[0], TILE * TILE
+    ntx = -(-WIDTH // TILE)
+    n_is = int(b.n_isect)
+    rep = {"partition": {}, "raster": {}}
+
+    # Bucket binning at B = 64 (the default headroom, then 4: no drop) and
+    # B = 2048 (q = 1, a window of 4C).
+    quanta = {BUCKETS: quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)}
+    for B, h in ((WIDE_BUCKETS[0], BUCKET_HEADROOM), (WIDE_BUCKETS[0], 4.0),
+                 (WIDE_BUCKETS[1], BUCKET_HEADROOM)):
+        tag = f"wide B {B}, headroom {h}"
+        bk = compare_partition(sargs, b, fwd_out, bw, tag, buckets=B, headroom=h)
+        if h == 4.0 and bk["n_drop"]:
+            fail(f"[{tag}] bucket drops at headroom 4 ({bk['n_drop']}): the forward cannot be "
+                 f"held to the dense one")
+        tile_key, depths, Tb = bk["tile_key"], bk["depths"], bk["T"]
+        if h == BUCKET_HEADROOM:
+            quanta[B] = bk["q"]
+            kept, cols = int(bk["out"][2].sum()), bk["out"][0].numel()
+            rep["partition"][B] = {
+                "q": bk["q"], "max_abs_err": bk["err"], "n_bucket_dropped": bk["n_drop"],
+                "layout_errs": bk["layout_errs"], "output_columns": cols,
+                # tiles of every slot, depths of the kept ones, 12 B an output column
+                "bound_ms": (4 * tile_key.shape[0] + 4 * kept + 12 * cols + 8 * B)
+                / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": cuda_ms(lambda B=B, q=bk["q"]: bucket_partition_plain(
+                    tile_key, depths, Tb, B, q, C=BUCKET_C), reps=3, warmup=1)}
+        del bk
+        torch.cuda.empty_cache()
+    part_turns = in_turns({B: (lambda B=B, q=q: bucket_partition(tile_key, depths, Tb, B, q,
+                                                                  C=BUCKET_C))
+                           for B, q in quanta.items()}, reps=7)
+    log(f"[wide] partition kernel ms in turns (each B twice, B {BUCKETS} the old setting): "
+        f"{ {B: [round(x, 4) for x in v] for B, v in part_turns.items()} }")
+    for B in WIDE_BUCKETS:
+        rep["partition"][B]["ms"] = statistics.median(part_turns[B])
+    rep["partition"][BUCKETS] = {"ms_in_turns": part_turns[BUCKETS]}
+    del tile_key, depths
+
+    # Raster chunks 2048 and 8192 (staged 256 entries at a time) on the
+    # dense layout, and the old chunk beside them in turns.
+    gout = bw["gout"]
+    gcap = bw["gcap"]
+    old = {"rasterize_fwd": lambda: fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx,
+                                              CHUNK),
+           "rasterize_bwd": lambda: bwd_tiles(b.tile_starts, b.counts, b.sorted_soa, gout,
+                                              fwd_out, TILE, ntx, CHUNK, N, gcap)}
+    q256 = queue_for(b)
+    old["rasterize_fwd_q"] = lambda: fwd_tiles_q(*q256[:2], b.tile_starts, b.counts, q256[2],
+                                                 b.sorted_soa, TILE, ntx, CHUNK)
+    old["rasterize_bwd_q"] = lambda: bwd_tiles_q(*q256[:2], b.tile_starts, b.counts, q256[2],
+                                                 b.sorted_soa, gout, fwd_out, TILE, ntx, CHUNK,
+                                                 N, gcap)
+    turns = {k: {CHUNK: []} for k in old}
+    for chunk in WIDE_CHUNKS:
+        tag = f"wide chunk {chunk}"
+        bc = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, chunk, MAX_T)
+        if not (torch.equal(bc.tile_starts, b.tile_starts) and torch.equal(bc.counts, b.counts)):
+            fail(f"[{tag}] the binning's tables differ from chunk {CHUNK}'s")
+        kc = compare_kernels(sargs, bc, tag, chunk=chunk)
+        bwc = compare_backward(bc, kc["fwd_out"], N, tag, seed=1, chunk=chunk)
+        qc = compare_queue(bc, kc["fwd_out"], kc["plain_out"], bwc, N, tag, chunk=chunk)
+        d = (kc["fwd_out"] - fwd_out).abs()
+        log(f"[{tag}] forward against chunk {CHUNK}'s: max |diff| {float(d.max()):.3e} in "
+            f"{int((d > 0).any(2).any(1).sum())} of {T} tiles (the stop rule is per chunk)")
+        del d
+        k_out, soa = kc["fwd_out"], bc.sorted_soa
+        gc = bwc["gcap"]
+        qq = queue_for(bc, chunk=chunk)
+        new = {
+            "rasterize_fwd": lambda: fwd_tiles(bc.tile_starts, bc.counts, soa, TILE, ntx, chunk),
+            "rasterize_bwd": lambda: bwd_tiles(bc.tile_starts, bc.counts, soa, bwc["gout"],
+                                               k_out, TILE, ntx, chunk, N, gc),
+            "rasterize_fwd_q": lambda: fwd_tiles_q(*qq[:2], bc.tile_starts, bc.counts, qq[2],
+                                                   soa, TILE, ntx, chunk),
+            "rasterize_bwd_q": lambda: bwd_tiles_q(*qq[:2], bc.tile_starts, bc.counts, qq[2],
+                                                   soa, bwc["gout"], k_out, TILE, ntx, chunk,
+                                                   N, gc)}
+        fwd_plain_ms = cuda_ms(lambda: fwd_tiles_plain(bc.tile_starts, bc.counts, soa, TILE,
+                                                       ntx, chunk), reps=3, warmup=1)
+        n_written = int(bwc["meta"][0])
+        fwd_bytes = (4 * (2 * T + 1) + 4 * 10 * n_is + 4 * T * 8 * P) / HBM_BYTES_PER_S * 1e3
+        bwd_bytes = ((4 * (2 * T + 1) + 4 * 11 * n_is + 2 * 4 * T * 8 * P + 64 * n_written
+                      + 12) / HBM_BYTES_PER_S * 1e3)
+        queue_bytes = (4 * (T + 2) + 4 * int(qq[2])) / HBM_BYTES_PER_S * 1e3
+        fwd_bound = max(fwd_bytes, bwc["active"] * FWD_FLOPS_PER_PAIR / FP32_FLOPS * 1e3)
+        bwd_bound = max(bwd_bytes, bwc["active"] * (BWD_RECOMPUTE_FLOPS + BWD_GRAD_FLOPS)
+                        / FP32_FLOPS * 1e3)
+        for k, err, bound in (("rasterize_fwd", kc["fwd_err"], fwd_bound),
+                              ("rasterize_bwd", bwc["bwd_err"], bwd_bound),
+                              ("rasterize_fwd_q", qc["fwd_q_err"], fwd_bound + queue_bytes),
+                              ("rasterize_bwd_q", qc["bwd_q_err"], bwd_bound + queue_bytes)):
+            rep["raster"].setdefault(k, {})[chunk] = {"max_abs_err": err, "bound_ms": bound}
+        rep["raster"]["rasterize_fwd"][chunk]["plain_ms"] = fwd_plain_ms
+        # In turns with the old chunk: old, new, new, old, each cuda_ms.
+        for k in old:
+            t = in_turns({CHUNK: old[k], chunk: new[k]}, reps=7)
+            turns[k][CHUNK] += t[CHUNK]
+            rep["raster"][k][chunk]["ms"] = statistics.median(t[chunk])
+            rep["raster"][k][chunk]["ms_in_turns"] = t[chunk]
+        log(f"[{tag}] n_written {n_written} of grad_cap {gc}; ms in turns with chunk {CHUNK}: "
+            + ", ".join(f"{k} {rep['raster'][k][chunk]['ms_in_turns']} (chunk {CHUNK} "
+                        f"{turns[k][CHUNK][-2:]})" for k in old)
+            + f"; plain forward {fwd_plain_ms:.3f} ms")
+        del kc, bwc, qc, bc, new, k_out, soa, qq
+        torch.cuda.empty_cache()
+    for k in old:
+        rep["raster"][k][CHUNK] = {"ms_in_turns": turns[k][CHUNK]}
+
+    # The entry points at the new settings: one render at chunk 2048, a loop
+    # and a queue forward + backward at chunk 2048, WIDE_STEPS steps each
+    # with sort_buckets=64 and raster_chunk=2048, in turns with dense ones.
+    reset_launches()
+    p = state.params
+    with torch.no_grad():
+        img = render(p.means, p.quats, p.log_scales, p.logit_opacities, p.sh_coeffs,
+                     views[0]["world_view_transform"], views[0]["K"], WIDTH, HEIGHT,
+                     sh_degree=3, backend="auto", raster_chunk=WIDE_CHUNKS[0], device=dev).render
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+        fail("[wide] the chunk-2048 render is not finite or of the wrong shape")
+    leaves = [x.detach().clone().requires_grad_(True) for x in sargs[:5]]
+    outs = {}
+    for queue in (False, True):
+        o = rasterize_tiled(*leaves, sargs[5], WIDTH, HEIGHT, chunk=WIDE_CHUNKS[0], queue=queue)
+        (o[0].sum() + o[1].sum()).backward()
+        outs[queue] = o[0].detach()
+    if not torch.equal(outs[True], outs[False]):
+        fail("[wide] the chunk-2048 queue image differs from the loop image")
+    del leaves, outs, img
+    wide_b = f"sort_buckets={WIDE_BUCKETS[0]}"
+    runs = steps_in_turns(dev, scene, images, views, {
+        "dense": TrainingConfig(backend="auto"),
+        wide_b: TrainingConfig(backend="auto", sort_buckets=WIDE_BUCKETS[0]),
+        f"raster_chunk={WIDE_CHUNKS[0]}": TrainingConfig(backend="auto",
+                                                         raster_chunk=WIDE_CHUNKS[0])},
+        WIDE_STEPS)
+    for k, r in runs.items():
+        _check_steps(f"wide steps {k}", r["rows"], budget_check=False)
+    # The new settings' launches: all since the reset but the dense steps'.
+    launches = {k: v - runs["dense"]["launches"].get(k, 0) for k, v in read_launches().items()}
+    log(f"[wide] launches through the entry points at the new settings (a chunk-"
+        f"{WIDE_CHUNKS[0]} render, a queue and a loop forward + backward, {WIDE_STEPS} steps "
+        f"each): {launches}; bucket drops a "
+        f"step at B {WIDE_BUCKETS[0]}: {[r['n_budget_dropped'] for r in runs[wide_b]['rows']]}")
+    need = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
+            "rasterize_fwd_q", "rasterize_bwd_q", "partition")
+    if min(launches[k] for k in need) < 1 or runs[wide_b]["launches"].get(
+            "partition", 0) < WIDE_STEPS:
+        fail(f"[wide] a kernel never launched at the new settings: {launches}")
+    rep["launches"] = launches
+    rep["step_ms"] = {k: statistics.median(r["ms"][1:]) for k, r in runs.items()}
+    del runs
+
+    rep["deep"] = deep_tiles_phase(dev)
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"[wide] phase 12 in {rep['seconds']:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
+def wide_alone():
+    """Phase 12 alone on the card, after the build and the render phase it
+    takes its images from, at training view 0 of the noisy starting state:
+    ``python -c "import chip_smoke; chip_smoke.wide_alone()"`` from the
+    repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    state = state_from_numpy(scene, device=dev)
+    _, images, _ = render_phase(dev, state, views)
+    sargs, b, fwd_out = modes_inputs(dev, scene, views)
+    bw = compare_backward(b, fwd_out, N_GAUSSIANS, "train view 0", seed=1)
+    rep = wide_settings_phase(dev, state, scene, views, images, sargs, b, fwd_out, bw)
+    log(f"[wide] phase 12 alone: {json.dumps(rep, default=str)}")
+
+
+def parent_alone(parent_root, reps=7):
+    """The old settings (chunk 256, B 8) on this checkout's kernels and on
+    those of another checkout of this repository at ``parent_root`` (whose
+    kernels take the same C arguments), built there with this checkout's
+    flags: at training view 0 of the noisy starting state, each kernel's
+    outputs on both (the forward ones bit for bit, the partition exact, the
+    backward ones within the backward's gates and meta equal) and each
+    kernel's time in turns, parent, this, this, parent:
+    ``python -c "import chip_smoke; chip_smoke.parent_alone('DIR')"``."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.ops import _build
+    from gaussian_splatting_tpu_torch.ops.partition import bucket_partition, quantum_for
+    from gaussian_splatting_tpu_torch.ops.rasterize_cuda import (
+        bwd_tiles, bwd_tiles_q, fwd_tiles, fwd_tiles_q, grad_cap)
+    from gaussian_splatting_tpu_torch.ops.tiling import (
+        BUCKET_C, binning_slots, reduce_padded_grads)
+
+    names = ("rasterize_fwd", "rasterize_bwd", "rasterize_fwd_q", "rasterize_bwd_q", "partition")
+    _build.build(KERNELS)
+    mine = {n: _build.load(n) for n in names}
+    saved = _build.CSRC, _build.BUILD_DIR
+    _build.CSRC = Path(parent_root).resolve() / "gaussian_splatting_tpu_torch" / "csrc"
+    _build.BUILD_DIR = saved[1].parent / "parent-kernels"
+    try:
+        theirs = {n: ctypes.CDLL(str(p)) for n, p in _build.build(names).items()}
+    finally:
+        _build.CSRC, _build.BUILD_DIR = saved
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    sargs, b, fwd_out = modes_inputs(dev, scene, views)
+    ntx, N = -(-WIDTH // TILE), N_GAUSSIANS
+    gcap = grad_cap(N, MAX_T, CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gout = torch.randn(fwd_out.shape, generator=gen, device=dev)
+    gout[:, 5:] = 0.0
+    qu = queue_for(b)
+    means2d, conics, _, opac, depths, radii = sargs
+    tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
+                                         MAX_T)
+    q8 = quantum_for(BUCKET_C, BUCKETS, BUCKET_HEADROOM)
+    calls = {
+        "rasterize_fwd": lambda: fwd_tiles(b.tile_starts, b.counts, b.sorted_soa, TILE, ntx,
+                                           CHUNK),
+        "rasterize_bwd": lambda: bwd_tiles(b.tile_starts, b.counts, b.sorted_soa, gout, fwd_out,
+                                           TILE, ntx, CHUNK, N, gcap),
+        "rasterize_fwd_q": lambda: fwd_tiles_q(*qu[:2], b.tile_starts, b.counts, qu[2],
+                                               b.sorted_soa, TILE, ntx, CHUNK),
+        "rasterize_bwd_q": lambda: bwd_tiles_q(*qu[:2], b.tile_starts, b.counts, qu[2],
+                                               b.sorted_soa, gout, fwd_out, TILE, ntx, CHUNK,
+                                               N, gcap),
+        "partition": lambda: bucket_partition(tile_key, depths, T, BUCKETS, q8, C=BUCKET_C)}
+
+    def on(libs, fn):
+        def call():
+            _build._loaded.update(libs)
+            return fn()
+        return call
+
+    report = {}
+    for k, fn in calls.items():
+        a, c = on(theirs, fn)(), on(mine, fn)()
+        torch.cuda.synchronize()
+        if k in ("rasterize_bwd", "rasterize_bwd_q"):
+            sa = reduce_padded_grads(a[0], N, a[1][0], with_depth=True)
+            sc = reduce_padded_grads(c[0], N, c[1][0], with_depth=True)
+            _, ok = grad_errors(sc, sa)
+            same = ok and a[1].tolist() == c[1].tolist()
+            detail = f"meta {a[1].tolist()} / {c[1].tolist()}, within the backward's gates {ok}"
+        else:
+            pairs = list(zip(a, c)) if isinstance(a, tuple) else [(a, c)]
+            same = all(torch.equal(x, y) for x, y in pairs)
+            detail = "bit for bit"
+        t = in_turns({"parent": on(theirs, fn), "this": on(mine, fn)}, reps=reps)
+        _build._loaded.update(mine)
+        report[k] = {"equal": same, "parent_ms": t["parent"], "this_ms": t["this"]}
+        log(f"[parent] {k}: parent vs this checkout {detail}: {same}; ms in turns parent "
+            f"{[round(x, 4) for x in t['parent']]}, this {[round(x, 4) for x in t['this']]}")
+        if not same:
+            fail(f"[parent] {k}: this checkout's output differs from the parent's")
+    log(f"[parent] {json.dumps(report)}")
+
+
 def _cli_call(main, argv, records):
     """``main(argv)`` of a CLI with its standard output kept off this
     script's (the eval CLI prints a JSON summary line); returns the exit
@@ -3254,6 +3702,9 @@ def run(dev):
     # 11. The binning modes at training view 0 and on the training path.
     modes = binning_modes_phase(dev, scene, views, images, sargs, b, fwd_out)
     torch.cuda.empty_cache()
+    # 12. The settings the port used to refuse, beside the old ones.
+    wide = wide_settings_phase(dev, state, scene, views, images, sargs, b, fwd_out, bw)
+    torch.cuda.empty_cache()
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
@@ -3262,6 +3713,23 @@ def run(dev):
     # 10. The mesh: the sharded step and the trainer on it.
     mesh = mesh_phase(dev, scene, views, images, trainer_inputs(dev, scene, raster),
                       tr["iter_ms"])
+
+    def wide_row(name):
+        """Phase 12's numbers for kernel ``name``: at each new setting the
+        ms (median of its turns), the largest error against the plain
+        version and the bound; the old setting's ms in the same turns; the
+        launches through phase 12's entry points."""
+        out = {"wide_launches": wide["launches"][name]}
+        if name == "partition":
+            out["wide_settings"] = {f"sort_buckets={B}": wide["partition"][B]
+                                    for B in WIDE_BUCKETS}
+            out["old_setting_ms_in_turns"] = wide["partition"][BUCKETS]["ms_in_turns"]
+        elif name in wide["raster"]:
+            out["wide_settings"] = {f"chunk={c}": wide["raster"][name][c] for c in WIDE_CHUNKS}
+            out["old_setting_ms_in_turns"] = wide["raster"][name][CHUNK]["ms_in_turns"]
+            deep = wide["deep"]["bwd" if "bwd" in name else "fwd"]
+            out["wide_settings"]["deep_tiles_max_abs_err"] = deep
+        return out
 
     def row(name, src, replaces, err, ms, plain_ms, bound_ms, bound_by, lib_ms, **extra):
         return {"name": name, "route": "cuda",
@@ -3274,7 +3742,8 @@ def run(dev):
                 "eval_cli_launches": cli["eval_launches"][name],
                 "mesh_launches": mesh["all_launches"][name],
                 "binning_modes_launches": modes["launches"].get(name, 0),
-                "binning_modes_max_abs_err": modes["errs"].get(name), **extra}
+                "binning_modes_max_abs_err": modes["errs"].get(name), **wide_row(name),
+                **extra}
 
     def by(bytes_ms, ops_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

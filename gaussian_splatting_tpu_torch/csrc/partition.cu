@@ -26,21 +26,38 @@
 // and the 4-byte depth (and on the compact layout the 4-byte slot_gid) of
 // every kept one, and writes 12 bytes (key and gid) per output column: at 1M
 // gaussians, dense, max_t 16, B 8, q 96 that is 64 MB + 7 MB + 288 MB, ~0.11
-// ms at 3.35 TB/s. Design: one warp a chunk, in a
-// persistent grid, so no block-wide barrier: a lane holds the chunk's C / 32
-// slots of its column (one coalesced load each, the next chunk's loaded
-// while this one is written). The rank of a kept slot in its (chunk, bucket)
-// comes round by round from log2(B) + 1 ballots (the lanes of the same
-// bucket) and a running per-bucket count that lane b keeps for bucket b
-// (B <= 32). Kept slots are staged as (tile, gid) in the warp's shared
-// memory at (bucket, rank); then the warp writes the chunk's B x q window
-// of keys and gids, pads and kept columns together, as whole 16-byte
-// evict-first stores (q % 4 == 0: B <= 32 and B q a multiple of 128), gathering
-// the kept columns' depths (4 MB, L2-resident) as it goes. Counts and
-// drops are summed per block in shared memory and added with integer
+// ms at 3.35 TB/s; at B 2048, q 1 the window is 4C, 768 MB of output, ~0.25
+// ms. Design: one warp a chunk, in a persistent grid; a lane holds the
+// chunk's C / 32 slots of its column (one coalesced load each, the next
+// chunk's loaded while this one is written). Kept slots are staged as
+// (tile, gid) in shared memory at (bucket, rank); then the chunk's B x q
+// window of keys and gids is written, pads and kept columns together,
+// gathering the kept columns' depths (4 MB, L2-resident) as it goes. Counts
+// and drops are summed per block in shared memory and added with integer
 // atomics once a block, so the result is deterministic. A first design, one
 // 512-thread block a chunk with a block-wide scan of the warp counts and
 // four barriers a chunk, was slower on the H100 (PERF.md).
+//
+// B <= 32 (bucket_partition_kernel), no block-wide barrier: the rank of a
+// kept slot in its (chunk, bucket) comes round by round from log2(B) + 1
+// ballots (the lanes of the same bucket) and a running per-bucket count that
+// lane b keeps for bucket b; each warp writes its own chunk's window as
+// whole 16-byte evict-first stores (q % 4 == 0: B q is a multiple of 128).
+//
+// B > 32, up to the 2048 buckets of a window of 4C at C = 512
+// (bucket_partition_wide_kernel): the running counts live in shared memory,
+// B a warp; __match_any_sync gives the lanes of a slot's bucket, whose rank
+// is that count plus the lanes below it, and the lowest of them advances
+// the count. A bucket's window is q columns, 1 to 32, and B of them are far
+// apart (a row of cap columns each), so a warp writing its own chunk would
+// store one short run a row. Instead the block's eight warps rank eight
+// consecutive chunks, and the block writes their windows together: bucket
+// b's 8 q columns of those chunks are contiguous, so consecutive threads
+// write consecutive columns of a row (64-byte key runs at q = 1). Three
+// block barriers a group of eight chunks. The stages and counts are laid out
+// (bucket, warp, rank) so that the write reads them in order. Shared memory:
+// eight (B, q) stages of 8 B a column and 10 B counts: 208 KB at B q = 2048,
+// B = 2048, within the 227 KB a block may opt into.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,7 +77,7 @@ __device__ __forceinline__ long long kept_key(int2 st, const float* __restrict__
   return ((long long)st.x << 32) | order_bits(__ldg(depths + st.y));
 }
 
-// kRounds = C / 32 slots a lane.
+// kRounds = C / 32 slots a lane; B <= 32.
 template <int kRounds>
 __global__ void __launch_bounds__(kWarps * 32)
 bucket_partition_kernel(const int* __restrict__ tile, const int* __restrict__ slot_gid,
@@ -169,30 +186,141 @@ bucket_partition_kernel(const int* __restrict__ tile, const int* __restrict__ sl
   }
 }
 
+// kRounds = C / 32 slots a lane; B > 32.
+template <int kRounds>
+__global__ void __launch_bounds__(kWarps * 32)
+bucket_partition_wide_kernel(const int* __restrict__ tile, const int* __restrict__ slot_gid,
+                             int64_t m, int64_t n_chunks,
+                             const float* __restrict__ depths, int n, int T, int B, int q,
+                             int64_t cap, long long* __restrict__ key_out,
+                             int* __restrict__ gid_out, int* __restrict__ counts,
+                             int* __restrict__ drops) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int2* stage = reinterpret_cast<int2*>(smem);  // (B, kWarps, q) kept (tile, gid)
+  int* cnt = smem + 2 * kWarps * B * q;          // (B, kWarps) slots of each chunk's bucket
+  int* bsum = cnt + kWarps * B;                  // (2, B) block sums
+  for (int i = threadIdx.x; i < 2 * B; i += blockDim.x) bsum[i] = 0;
+
+  const int C = 32 * kRounds;
+  const int64_t step = (int64_t)gridDim.x * kWarps;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long pad_key = (long long)T << 32;
+
+  int64_t g = (int64_t)blockIdx.x * kWarps + warp;  // this warp's chunk
+  int t[kRounds];
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    const int64_t s = g * C + 32 * k + lane;
+    t[k] = g < n_chunks && s < m ? __ldcs(tile + s) : T;
+  }
+  for (int64_t g0 = g - warp; g0 < n_chunks; g0 += step, g += step) {
+    __syncthreads();  // the previous group's window is written
+    for (int i = threadIdx.x; i < kWarps * B; i += blockDim.x) cnt[i] = 0;
+    __syncthreads();
+    // Ranks, round by round in slot order: cnt[b][warp] counts the kept
+    // slots of bucket b so far, dropped ones included. Slots past n_chunks
+    // hold T and are not kept.
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const bool keep = t[k] < T;
+      const int bid = t[k] & (B - 1);
+      const unsigned same = __match_any_sync(kFull, keep ? bid : -1);
+      int* c = cnt + bid * kWarps + warp;
+      const int base = keep ? *c : 0;
+      __syncwarp();
+      if (keep) {
+        const int rank = base + __popc(same & lower);
+        if (rank < q) {
+          const int64_t s = g * C + 32 * k + lane;
+          stage[(bid * kWarps + warp) * q + rank] =
+              make_int2(t[k], slot_gid ? __ldg(slot_gid + s) : (int)(s % n));
+        }
+        if (!(same & lower)) *c = base + __popc(same);
+      }
+      __syncwarp();
+    }
+    // The next group's tiles, in flight while this one is written.
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const int64_t s = (g + step) * C + 32 * k + lane;
+      t[k] = g + step < n_chunks && s < m ? __ldcs(tile + s) : T;
+    }
+    __syncthreads();  // every warp's stage and counts are in
+
+    // The group's window: bucket b's columns [g0 q, g0 q + w q) of its row,
+    // w the group's chunks; element i = (b, chunk, j) in that order.
+    const int w = (int)(n_chunks - g0 < kWarps ? n_chunks - g0 : kWarps);
+    const int wq = w * q;
+    for (int i = threadIdx.x; i < B * wq; i += blockDim.x) {
+      const int b = i / wq;
+      const int r = i - b * wq;  // chunk (r / q) of the group, column j of its window
+      const int j = r - (r / q) * q;
+      const int c = cnt[b * kWarps + r / q];
+      const int kept = min(c, q);
+      const int64_t col = b * cap + g0 * q + r;
+      if (j < kept) {
+        const int2 st = stage[b * kWarps * q + r];
+        key_out[col] = kept_key(st, depths);
+        gid_out[col] = st.y;
+      } else {
+        key_out[col] = pad_key;
+        gid_out[col] = 0;
+      }
+      if (j == 0 && c) {
+        atomicAdd(bsum + b, kept);
+        if (c > kept) atomicAdd(bsum + B + b, c - kept);
+      }
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    if (bsum[b]) atomicAdd(counts + b, bsum[b]);
+    if (bsum[B + b]) atomicAdd(drops + b, bsum[B + b]);
+  }
+}
+
+// The persistent grid of kernel fn: as many blocks as fit on the card at
+// smem bytes each, and no more than the chunks need (one warp a chunk).
+template <typename Kernel>
+cudaError_t grid_for(Kernel fn, size_t smem, int64_t n_chunks, unsigned* blocks) {
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWarps * 32, smem)) !=
+      cudaSuccess)
+    return err;
+  const int64_t b = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t needed = (n_chunks + kWarps - 1) / kWarps;
+  *blocks = (unsigned)(b < needed ? b : needed);
+  return cudaSuccess;
+}
+
 template <int kRounds>
 int launch(const int* tile, const int* slot_gid, int64_t m, int64_t n_chunks,
            const float* depths, int n, int T,
            int B, int q, long long* key, int* gid, int* counts, int* drops, cudaStream_t st) {
-  int log2B = 0;
-  while ((1 << log2B) < B) ++log2B;
   const size_t smem = ((size_t)2 * kWarps * B * q + (size_t)(kWarps + 2) * B) * sizeof(int);
-  auto* fn = bucket_partition_kernel<kRounds>;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWarps * 32, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int64_t needed = (n_chunks + kWarps - 1) / kWarps;
-  if (blocks > needed) blocks = needed;
-  fn<<<(unsigned)blocks, kWarps * 32, smem, st>>>(tile, slot_gid, m, n_chunks, depths, n, T, B,
-                                                  log2B, q, n_chunks * q, key, gid, counts,
-                                                  drops);
+  unsigned blocks = 0;
+  cudaError_t err;
+  if (B <= 32) {
+    int log2B = 0;
+    while ((1 << log2B) < B) ++log2B;
+    auto* fn = bucket_partition_kernel<kRounds>;
+    if ((err = grid_for(fn, smem, n_chunks, &blocks)) != cudaSuccess) return (int)err;
+    fn<<<blocks, kWarps * 32, smem, st>>>(tile, slot_gid, m, n_chunks, depths, n, T, B, log2B,
+                                          q, n_chunks * q, key, gid, counts, drops);
+  } else {
+    auto* fn = bucket_partition_wide_kernel<kRounds>;
+    if ((err = grid_for(fn, smem, n_chunks, &blocks)) != cudaSuccess) return (int)err;
+    fn<<<blocks, kWarps * 32, smem, st>>>(tile, slot_gid, m, n_chunks, depths, n, T, B, q,
+                                          n_chunks * q, key, gid, counts, drops);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -204,7 +332,8 @@ int launch(const int* tile, const int* slot_gid, int64_t m, int64_t n_chunks,
 // (n_buckets, cap) int64 and gid: (n_buckets, cap) int32 with cap =
 // (m_pad / chunk) * q, 16-byte aligned; counts_drops: (2, n_buckets) int32,
 // the counts then the drops, zeroed here. chunk in {32, 64, ..., 1024};
-// n_buckets a power of two, at most 32; q a multiple of 4.
+// n_buckets a power of two >= 2, n_buckets * q a multiple of 128 whose
+// stages fit in shared memory (ops/partition.py checks both).
 extern "C" int gs_bucket_partition(const void* tile, const void* slot_gid, int64_t m,
                                    int64_t m_pad,
                                    const void* depths, int n, int T, int n_buckets, int q,

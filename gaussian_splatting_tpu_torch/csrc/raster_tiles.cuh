@@ -75,13 +75,27 @@ constexpr unsigned kFull = 0xffffffffu;
 // Relative slack of the cull against the rounding of q and sigma.
 constexpr float kCullSlack = 1e-5f;
 
+// A chunk of up to kMaxStage entries is staged whole in shared memory; a
+// longer one (the kernels' kStaged instantiation) kStage entries at a time.
+// A stage of 256 keeps the backward's 12 staged rows and 10 rows of sums at
+// 22.5 KB a block: stages of 1024 (90 KB) left room for two 256-thread
+// blocks an SM, and the backward at chunk 2048 took 1.56 ms against 1.20 at
+// chunk 256 on the H100 (PERF.md).
+constexpr int kMaxStage = 1024;
+constexpr int kStage = 256;
+
 // Dynamic shared memory of the forward and backward chunk bodies.
-__host__ __device__ constexpr int acc_stride(int chunk) { return chunk | 1; }
+__host__ __device__ constexpr int stage_len(int chunk) {
+  return chunk <= kMaxStage ? chunk : kStage;
+}
+__host__ __device__ constexpr int acc_stride(int stage) { return stage | 1; }
 __host__ __device__ constexpr size_t fwd_smem_bytes(int chunk) {
-  return (size_t)kFwdStageRows * chunk * sizeof(float);
+  return (size_t)kFwdStageRows * stage_len(chunk) * sizeof(float);
 }
 __host__ __device__ constexpr size_t bwd_smem_bytes(int chunk) {
-  return ((size_t)kBwdStageRows * chunk + (size_t)kGradRows * acc_stride(chunk)) * sizeof(float);
+  return ((size_t)kBwdStageRows * stage_len(chunk) +
+          (size_t)kGradRows * acc_stride(stage_len(chunk))) *
+         sizeof(float);
 }
 
 // The pixel of this thread. Warp w covers the 8x4 block (w % (ts / 8),
@@ -150,32 +164,32 @@ __device__ __forceinline__ bool warp_may_hit(const Pixel& q, float mx, float my,
   return !(q_min > __fadd_rn(gate, __fmul_rn(kCullSlack, scale)));
 }
 
-// The group's mask: bit j set unless entry g + j (< n) is culled for this
-// warp. Every lane of the warp must call it.
-__device__ __forceinline__ unsigned group_hits(const Pixel& q, const float* sh, int chunk,
-                                               int g, int n) {
+// The group's mask: bit j set unless staged entry g + j (< n) is culled for
+// this warp; S is the stage's row stride. Every lane of the warp must call it.
+__device__ __forceinline__ unsigned group_hits(const Pixel& q, const float* sh, int S, int g,
+                                               int n) {
   const int k = g + (threadIdx.x & 31);
-  const bool hit = k < n && warp_may_hit(q, sh[k], sh[chunk + k], sh[2 * chunk + k],
-                                         sh[3 * chunk + k], sh[4 * chunk + k],
-                                         sh[kGateRow * chunk + k]);
+  const bool hit = k < n && warp_may_hit(q, sh[k], sh[S + k], sh[2 * S + k], sh[3 * S + k],
+                                         sh[4 * S + k], sh[kGateRow * S + k]);
   return __ballot_sync(kFull, hit);
 }
 
-// Stage the chunk [col0, col0 + n) of the (16, soa_cols) SoA: rows 0..9 in
-// sh[r * chunk + k], Q in row kGateRow and, with the id, SoA row 11 in row 11.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ soa, int64_t soa_cols,
-                                            int64_t col0, int n, int chunk, float* sh,
-                                            bool with_id) {
+// Stage the entries [col0, col0 + n) of the (16, soa_cols) SoA, n <= S:
+// rows 0..9 in sh[r * S + k], Q in row kGateRow and, with the id, SoA row 11
+// in row 11.
+__device__ __forceinline__ void stage_entries(const float* __restrict__ soa, int64_t soa_cols,
+                                              int64_t col0, int n, int S, float* sh,
+                                              bool with_id) {
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const int64_t col = col0 + k;
     float e[10];
 #pragma unroll
     for (int r = 0; r < 10; ++r) {
       e[r] = soa[r * soa_cols + col];
-      sh[r * chunk + k] = e[r];
+      sh[r * S + k] = e[r];
     }
-    sh[kGateRow * chunk + k] = cull_gate(e);
-    if (with_id) sh[11 * chunk + k] = soa[11 * soa_cols + col];
+    sh[kGateRow * S + k] = cull_gate(e);
+    if (with_id) sh[11 * S + k] = soa[11 * soa_cols + col];
   }
 }
 
@@ -183,41 +197,73 @@ struct FwdAcc {
   float r = 0.f, g = 0.f, b = 0.f, d = 0.f, w = 0.f;
 };
 
-// Blend the chunk [col0, col0 + n) into one pixel's sums. sh holds
-// kFwdStageRows * chunk floats. Each thread walks the entries its warp did
-// not cull and leaves the chunk at its first entry that fails the stop rule.
-// tcar, the transmittance after the last counted entry, carries from one
-// chunk to the next.
-__device__ __forceinline__ void fwd_chunk(const float* __restrict__ soa, int64_t soa_cols,
-                                          int64_t col0, int n, int chunk, float* sh,
-                                          const Pixel& q, float* tcar, FwdAcc* acc) {
-  __syncthreads();  // the previous chunk is no longer read
-  stage_chunk(soa, soa_cols, col0, n, chunk, sh, false);
+// Blend the staged entries [col0, col0 + n), n <= S, into one pixel's
+// sums: stage them (sh holds kFwdStageRows * S floats), then walk the
+// entries the warp did not cull until the first that fails the stop rule
+// against tc, the transmittance at the chunk's start; prod (the running
+// product of the chunk's counted entries) and done (the pixel has left the
+// chunk) carry in and out. The caller synchronizes before it.
+__device__ __forceinline__ void fwd_stage(const float* __restrict__ soa, int64_t soa_cols,
+                                          int64_t col0, int n, int S, float* sh,
+                                          const Pixel& q, float tc, float* prod_io,
+                                          bool* done_io, FwdAcc* acc) {
+  stage_entries(soa, soa_cols, col0, n, S, sh, false);
   __syncthreads();
 
-  const float tc = *tcar;
-  float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
-  bool done = false;
+  float prod = *prod_io;
+  bool done = *done_io;
   for (int g = 0; g < n && !__all_sync(kFull, done); g += 32) {
-    unsigned hits = group_hits(q, sh, chunk, g, n);
+    unsigned hits = group_hits(q, sh, S, g, n);
     if (done) continue;  // no warp-wide operation follows in this group
     while (hits) {
       const int k = g + __ffs(hits) - 1;
       hits &= hits - 1;
-      const Entry e = eval_entry(q.px, q.py, sh[k], sh[chunk + k], sh[2 * chunk + k],
-                                 sh[3 * chunk + k], sh[4 * chunk + k], sh[5 * chunk + k]);
+      const Entry e = eval_entry(q.px, q.py, sh[k], sh[S + k], sh[2 * S + k], sh[3 * S + k],
+                                 sh[4 * S + k], sh[5 * S + k]);
       const float prod_next = next_prod(prod, e.alpha);
       if (!entry_counts(tc, prod_next)) {
         done = true;
         break;
       }
       const float w = __fmul_rn(__fmul_rn(e.alpha, tc), prod);
-      acc->r = __fmaf_rn(w, sh[6 * chunk + k], acc->r);
-      acc->g = __fmaf_rn(w, sh[7 * chunk + k], acc->g);
-      acc->b = __fmaf_rn(w, sh[8 * chunk + k], acc->b);
-      acc->d = __fmaf_rn(w, sh[9 * chunk + k], acc->d);
+      acc->r = __fmaf_rn(w, sh[6 * S + k], acc->r);
+      acc->g = __fmaf_rn(w, sh[7 * S + k], acc->g);
+      acc->b = __fmaf_rn(w, sh[8 * S + k], acc->b);
+      acc->d = __fmaf_rn(w, sh[9 * S + k], acc->d);
       acc->w = __fadd_rn(acc->w, w);
       prod = prod_next;
+    }
+  }
+  *prod_io = prod;
+  *done_io = done;
+}
+
+// Blend the chunk [col0, col0 + n) into one pixel's sums: staged whole, or,
+// kStaged (chunk > kMaxStage), kStage entries at a time. Each thread leaves
+// the chunk at its first entry that fails the stop rule: the chunk's
+// running product and that exit carry across its stages and end only with
+// the chunk, so a chunk staged in pieces blends as one staged whole; a
+// block whose pixels have all left the chunk stages no more of it. tcar,
+// the transmittance after the last counted entry, carries from one chunk to
+// the next.
+template <bool kStaged>
+__device__ __forceinline__ void fwd_chunk(const float* __restrict__ soa, int64_t soa_cols,
+                                          int64_t col0, int n, int chunk, float* sh,
+                                          const Pixel& q, float* tcar, FwdAcc* acc) {
+  const float tc = *tcar;
+  float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
+  bool done = false;
+  if (!kStaged) {
+    __syncthreads();  // the previous chunk is no longer read
+    fwd_stage(soa, soa_cols, col0, n, chunk, sh, q, tc, &prod, &done, acc);
+  } else {
+    for (int s0 = 0; s0 < n; s0 += kStage) {
+      if (s0 == 0)
+        __syncthreads();  // the previous chunk is no longer read
+      else if (__syncthreads_and(done))
+        break;  // the previous stage is no longer read, and no pixel is left in the chunk
+      fwd_stage(soa, soa_cols, col0 + s0, min(kStage, n - s0), kStage, sh, q, tc, &prod, &done,
+                acc);
     }
   }
   *tcar = __fmul_rn(tc, prod);
@@ -283,38 +329,37 @@ __device__ __forceinline__ BwdPixel bwd_pixel(const float* __restrict__ gout,
   return b;
 }
 
-// The backward of the chunk [col0, col0 + n): recompute the forward's
-// alphas and stop rule over the entries the warp did not cull, sum each
-// entry's ten gradient terms over the tile's pixels, and append the chunk's
-// n columns to grad (16, grad_cap) at a base reserved with one atomicAdd on
-// *cursor. sh holds the staged rows (kBwdStageRows * chunk floats) followed
-// by the sums (acc[r * acc_stride(chunk) + k], r < kGradRows); s_base is one
-// shared int. tcar and pcar (the running prefix of gw * w) carry from one
-// chunk to the next.
-__device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t soa_cols,
-                                          int64_t col0, int n, int chunk, float* sh,
-                                          int* s_base, const Pixel& q, const BwdPixel& gp,
-                                          float* tcar, float* pcar,
+// The backward of the staged entries [col0, col0 + n), n <= S: stage them
+// (sh holds the staged rows, kBwdStageRows * S floats, followed by the sums
+// acc[r * acc_stride(S) + k], r < kGradRows), recompute the forward's
+// alphas and stop rule against tc over the entries the warp did not cull,
+// sum each entry's ten gradient terms over the tile's pixels, and append
+// the n columns to grad (16, grad_cap) at a base reserved with one
+// atomicAdd on *cursor (s_base is one shared int). prod, done and pc (the
+// pixel's running prefix of gw * w) carry in and out.
+__device__ __forceinline__ void bwd_stage(const float* __restrict__ soa, int64_t soa_cols,
+                                          int64_t col0, int n, int S, float* sh, int* s_base,
+                                          const Pixel& q, const BwdPixel& gp, float tc,
+                                          float* prod_io, bool* done_io, float* pc_io,
                                           float* __restrict__ grad, int64_t grad_cap,
                                           int* __restrict__ cursor) {
   const int P = blockDim.x;
   const int lane = threadIdx.x & 31;
-  const int as = acc_stride(chunk);
-  float* acc = sh + kBwdStageRows * chunk;
-  __syncthreads();  // the previous chunk's rows and sums are no longer read
-  stage_chunk(soa, soa_cols, col0, n, chunk, sh, true);
+  const int as = acc_stride(S);
+  float* acc = sh + kBwdStageRows * S;
+  __syncthreads();  // the previous stage's rows and sums are no longer read
+  stage_entries(soa, soa_cols, col0, n, S, sh, true);
   for (int k = threadIdx.x; k < n; k += P) {
 #pragma unroll
     for (int r = 0; r < kGradRows; ++r) acc[r * as + k] = 0.f;
   }
   __syncthreads();
 
-  const float tc = *tcar;
-  float pc = *pcar;
-  float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
-  bool done = false;
+  float prod = *prod_io;
+  bool done = *done_io;
+  float pc = *pc_io;
   for (int g = 0; g < n && !__all_sync(kFull, done); g += 32) {
-    unsigned hits = group_hits(q, sh, chunk, g, n);
+    unsigned hits = group_hits(q, sh, S, g, n);
     while (hits) {
       const int k = g + __ffs(hits) - 1;
       hits &= hits - 1;
@@ -323,9 +368,8 @@ __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t
       for (int r = 0; r < kGradRows; ++r) v[r] = 0.f;
       bool active = false;
       if (!done) {
-        const float ca = sh[2 * chunk + k], cb = sh[3 * chunk + k], cc = sh[4 * chunk + k];
-        const Entry e = eval_entry(q.px, q.py, sh[k], sh[chunk + k], ca, cb, cc,
-                                   sh[5 * chunk + k]);
+        const float ca = sh[2 * S + k], cb = sh[3 * S + k], cc = sh[4 * S + k];
+        const Entry e = eval_entry(q.px, q.py, sh[k], sh[S + k], ca, cb, cc, sh[5 * S + k]);
         const float prod_next = next_prod(prod, e.alpha);
         if (!entry_counts(tc, prod_next)) {
           done = true;
@@ -333,8 +377,8 @@ __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t
           if (e.contrib) {
             const float t_before = tc * prod;
             const float w = e.alpha * t_before;
-            const float gw = gp.g_r * sh[6 * chunk + k] + gp.g_g * sh[7 * chunk + k] +
-                             gp.g_b * sh[8 * chunk + k] + gp.g_d * sh[9 * chunk + k] + gp.g_w;
+            const float gw = gp.g_r * sh[6 * S + k] + gp.g_g * sh[7 * S + k] +
+                             gp.g_b * sh[8 * S + k] + gp.g_d * sh[9 * S + k] + gp.g_w;
             pc += gw * w;
             const float d_alpha = gw * t_before - (gp.q - pc) / (1.0f - e.alpha);
             const bool gate = e.araw <= kAlphaClamp;
@@ -361,8 +405,9 @@ __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t
       if (__all_sync(kFull, done)) break;
     }
   }
-  *tcar = __fmul_rn(tc, prod);
-  *pcar = pc;
+  *prod_io = prod;
+  *done_io = done;
+  *pc_io = pc;
   __syncthreads();  // every warp's sums are in
 
   if (threadIdx.x == 0) *s_base = atomicAdd(cursor, n);
@@ -370,7 +415,7 @@ __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t
   for (int k = threadIdx.x; k < n; k += P) {
     const int64_t pos = (int64_t)*s_base + k;
     if (pos >= grad_cap) continue;
-    grad[pos] = sh[11 * chunk + k];
+    grad[pos] = sh[11 * S + k];
 #pragma unroll
     for (int r = 0; r < kGradRows; ++r) grad[(r + 1) * grad_cap + pos] = acc[r * as + k];
 #pragma unroll
@@ -378,10 +423,38 @@ __device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t
   }
 }
 
+// The backward of the chunk [col0, col0 + n): staged whole or, kStaged
+// (chunk > kMaxStage), kStage entries at a time, each stage appended as it
+// is done (the TPU kernel appends every column of a chunk). As in the
+// forward, the chunk's running product, each pixel's exit and the warp's
+// exit carry across its stages and end only with the chunk. tcar and pcar
+// (the running prefix of gw * w) carry from one chunk to the next.
+template <bool kStaged>
+__device__ __forceinline__ void bwd_chunk(const float* __restrict__ soa, int64_t soa_cols,
+                                          int64_t col0, int n, int chunk, float* sh,
+                                          int* s_base, const Pixel& q, const BwdPixel& gp,
+                                          float* tcar, float* pcar,
+                                          float* __restrict__ grad, int64_t grad_cap,
+                                          int* __restrict__ cursor) {
+  const float tc = *tcar;
+  float prod = 1.0f;  // prod_{j<k}(1 - alpha_j) within this chunk
+  bool done = false;
+  if (!kStaged) {
+    bwd_stage(soa, soa_cols, col0, n, chunk, sh, s_base, q, gp, tc, &prod, &done, pcar, grad,
+              grad_cap, cursor);
+  } else {
+    for (int s0 = 0; s0 < n; s0 += kStage)
+      bwd_stage(soa, soa_cols, col0 + s0, min(kStage, n - s0), kStage, sh, s_base, q, gp, tc,
+                &prod, &done, pcar, grad, grad_cap, cursor);
+  }
+  *tcar = __fmul_rn(tc, prod);
+}
+
 // meta = [n_written, n_dropped, entries appended]: the TPU kernel's
-// accounting in whole chunks (a final partial chunk is padded to a full
-// one, rasterize_pallas.py:442), with the pad columns sentinel-filled
-// (id = sentinel, zero payload).
+// accounting in whole chunks of `chunk` (a final partial chunk is padded to
+// a full one, rasterize_pallas.py:442), whatever the stages the entries
+// were appended in, with the pad columns sentinel-filled (id = sentinel,
+// zero payload).
 __global__ void rasterize_bwd_tail_kernel(float* __restrict__ grad, int64_t grad_cap,
                                           int* __restrict__ meta, int chunk,
                                           float sentinel) {

@@ -47,7 +47,9 @@
 // the cull every pair would need the 23 of the recomputation, an
 // operations bound). Design (raster_tiles.cuh): one block per tile, one thread
 // per pixel, each chunk's rows and each entry's cull threshold staged once
-// in shared memory; each warp covers an 8x4 pixel block and skips, by an
+// in shared memory (a chunk longer than 1024 entries 256 at a time, each
+// piece appended as it is done, the stop rule and the prefix sum carried
+// across the pieces); each warp covers an 8x4 pixel block and skips, by an
 // exact ellipse-rectangle test and one ballot per 32 entries, the entries
 // that contribute to none of its pixels; each thread walks the rest
 // sequentially (the products and the prefix sum are sequential); the ten
@@ -64,6 +66,8 @@
 
 namespace {
 
+// kStaged: chunk > gs::kMaxStage, staged in pieces.
+template <bool kStaged>
 __global__ void rasterize_bwd_kernel(const int* __restrict__ tile_starts,
                                      const int* __restrict__ counts,
                                      const float* __restrict__ soa,
@@ -85,7 +89,7 @@ __global__ void rasterize_bwd_kernel(const int* __restrict__ tile_starts,
   float tcar = 1.0f;  // transmittance after the last counted entry
   float pcar = 0.0f;  // running prefix sum of gw * w
   for (int base = 0; base < count; base += chunk)
-    gs::bwd_chunk(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, &s_base,
+    gs::bwd_chunk<kStaged>(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, &s_base,
                   q, gp, &tcar, &pcar, grad, grad_cap, cursor);
 }
 
@@ -105,10 +109,10 @@ extern "C" int gs_rasterize_bwd(const void* tile_starts, const void* counts,
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
     const size_t smem = gs::bwd_smem_bytes(chunk);
-    err = cudaFuncSetAttribute(rasterize_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto* fn = chunk > gs::kMaxStage ? rasterize_bwd_kernel<true> : rasterize_bwd_kernel<false>;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    rasterize_bwd_kernel<<<n_tiles, ts * ts, smem, s>>>(
+    fn<<<n_tiles, ts * ts, smem, s>>>(
         (const int*)tile_starts, (const int*)counts, (const float*)soa, soa_cols,
         (const float*)gout, (const float*)fout, (float*)grad, grad_cap,
         (int*)meta + 2, ts, ntx, chunk);

@@ -36,6 +36,8 @@
 
 namespace {
 
+// kStaged: chunk > gs::kMaxStage, staged in pieces.
+template <bool kStaged>
 __global__ void rasterize_bwd_q_kernel(const int* __restrict__ wtile,
                                        const int* __restrict__ cum,
                                        const int* __restrict__ tile_starts,
@@ -68,7 +70,7 @@ __global__ void rasterize_bwd_q_kernel(const int* __restrict__ wtile,
       const int tw = wtile[w];
       const int ci = w - cum[tw];
       const int base = ci * chunk;
-      gs::bwd_chunk(soa, soa_cols, (int64_t)tile_starts[tw] + base,
+      gs::bwd_chunk<kStaged>(soa, soa_cols, (int64_t)tile_starts[tw] + base,
                     min(chunk, counts[tw] - base), chunk, sh, &s_base, q, gp, &tcar, &pcar,
                     grad, grad_cap, cursor);
     }
@@ -96,7 +98,9 @@ extern "C" int gs_rasterize_bwd_q(const void* wtile, const void* cum, const void
   if (n_tiles > 0) {
     const int threads = ts * ts;
     const size_t smem = gs::bwd_smem_bytes(chunk);
-    if ((err = cudaFuncSetAttribute(rasterize_bwd_q_kernel,
+    auto* fn =
+        chunk > gs::kMaxStage ? rasterize_bwd_q_kernel<true> : rasterize_bwd_q_kernel<false>;
+    if ((err = cudaFuncSetAttribute(fn,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)smem)) != cudaSuccess)
       return (int)err;
@@ -105,13 +109,13 @@ extern "C" int gs_rasterize_bwd_q(const void* wtile, const void* cum, const void
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
         cudaSuccess)
       return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, rasterize_bwd_q_kernel, threads, smem)) != cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
+        cudaSuccess)
       return (int)err;
     int blocks = per_sm * sms;
     if (blocks > n_tiles) blocks = n_tiles;
     if (blocks < 1) blocks = 1;
-    rasterize_bwd_q_kernel<<<blocks, threads, smem, s>>>(
+    fn<<<blocks, threads, smem, s>>>(
         (const int*)wtile, (const int*)cum, (const int*)tile_starts, (const int*)counts,
         (const int*)n_work, w_cap, (const float*)soa, soa_cols, (const float*)gout,
         (const float*)fout, (float*)grad, grad_cap, (int*)meta + 2, (int*)next_tile, n_tiles,

@@ -34,7 +34,8 @@
 // (chip_smoke.py counts both; without the cull every pair would need them,
 // an operations bound). Design (raster_tiles.cuh): each chunk
 // is staged once in shared memory with coalesced row loads (rows 0-9 and
-// each entry's cull threshold); each warp covers an 8x4 pixel block and
+// each entry's cull threshold), a chunk longer than 1024 entries 256 at a
+// time, its stop rule carried across the pieces; each warp covers an 8x4 pixel block and
 // skips, by an exact ellipse-rectangle test and one ballot per 32 entries,
 // the entries that contribute to none of its pixels, which leaves the
 // output unchanged bit for bit; a thread leaves the chunk at its first
@@ -47,6 +48,8 @@
 
 namespace {
 
+// kStaged: chunk > gs::kMaxStage, staged in pieces.
+template <bool kStaged>
 __global__ void rasterize_fwd_kernel(const int* __restrict__ tile_starts,
                                      const int* __restrict__ counts,
                                      const float* __restrict__ soa,
@@ -62,7 +65,7 @@ __global__ void rasterize_fwd_kernel(const int* __restrict__ tile_starts,
   float tcar = 1.0f;
   gs::FwdAcc acc;
   for (int base = 0; base < count; base += chunk)
-    gs::fwd_chunk(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, q, &tcar,
+    gs::fwd_chunk<kStaged>(soa, soa_cols, start + base, min(chunk, count - base), chunk, sh, q, &tcar,
                   &acc);
   gs::fwd_store(out, t, q.p, acc);
 }
@@ -77,10 +80,11 @@ extern "C" int gs_rasterize_fwd(const void* tile_starts, const void* counts,
                                 void* stream) {
   if (n_tiles == 0) return (int)cudaGetLastError();
   const size_t smem = gs::fwd_smem_bytes(chunk);
-  cudaError_t err = cudaFuncSetAttribute(rasterize_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* fn = chunk > gs::kMaxStage ? rasterize_fwd_kernel<true> : rasterize_fwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rasterize_fwd_kernel<<<n_tiles, ts * ts, smem, (cudaStream_t)stream>>>(
+  fn<<<n_tiles, ts * ts, smem, (cudaStream_t)stream>>>(
       (const int*)tile_starts, (const int*)counts, (const float*)soa, soa_cols,
       (float*)out, ts, ntx, chunk);
   return (int)cudaGetLastError();

@@ -42,6 +42,8 @@
 
 namespace {
 
+// kStaged: chunk > gs::kMaxStage, staged in pieces.
+template <bool kStaged>
 __global__ void rasterize_fwd_q_kernel(const int* __restrict__ wtile,
                                        const int* __restrict__ cum,
                                        const int* __restrict__ tile_starts,
@@ -72,7 +74,7 @@ __global__ void rasterize_fwd_q_kernel(const int* __restrict__ wtile,
       const int tw = wtile[w];
       const int ci = w - cum[tw];
       const int base = ci * chunk;
-      gs::fwd_chunk(soa, soa_cols, (int64_t)tile_starts[tw] + base,
+      gs::fwd_chunk<kStaged>(soa, soa_cols, (int64_t)tile_starts[tw] + base,
                     min(chunk, counts[tw] - base), chunk, sh, q, &tcar, &acc);
     }
     gs::fwd_store(out, t, q.p, acc);
@@ -96,8 +98,9 @@ extern "C" int gs_rasterize_fwd_q(const void* wtile, const void* cum, const void
   if (err != cudaSuccess || n_tiles == 0) return (int)err;
   const int threads = ts * ts;
   const size_t smem = gs::fwd_smem_bytes(chunk);
-  if ((err = cudaFuncSetAttribute(rasterize_fwd_q_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+  auto* fn =
+      chunk > gs::kMaxStage ? rasterize_fwd_q_kernel<true> : rasterize_fwd_q_kernel<false>;
+  if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return (int)err;
   int device = 0, sms = 0, per_sm = 0;
@@ -105,13 +108,13 @@ extern "C" int gs_rasterize_fwd_q(const void* wtile, const void* cum, const void
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rasterize_fwd_q_kernel,
-                                                           threads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
+      cudaSuccess)
     return (int)err;
   int blocks = per_sm * sms;
   if (blocks > n_tiles) blocks = n_tiles;
   if (blocks < 1) blocks = 1;
-  rasterize_fwd_q_kernel<<<blocks, threads, smem, s>>>(
+  fn<<<blocks, threads, smem, s>>>(
       (const int*)wtile, (const int*)cum, (const int*)tile_starts, (const int*)counts,
       (const int*)n_work, w_cap, (const float*)soa, soa_cols, (float*)out, (int*)next_tile,
       n_tiles, ts, ntx, chunk);

@@ -96,9 +96,15 @@ def bucket_partition_plain(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
     return key, gid, counts, drops
 
 
-# The largest B * quantum whose (tile, gid) windows, eight warps' worth, fit in
-# a block's 227 KB of shared memory (csrc/partition.cu).
-_MAX_WINDOW = 3584
+# Shared memory a block may opt into on the H100 (hopper-kernels guide, §1).
+_SMEM_OPT_IN = 232_448
+
+
+def _partition_smem(B: int, q: int) -> int:
+    """Shared memory of one block of the partition kernel
+    (``csrc/partition.cu``): eight warps' (B, q) stages of (tile, gid), and
+    B counts a warp plus the block's (2, B) sums, 4 bytes each."""
+    return 4 * (16 * B * q + 10 * B)
 
 
 def _check_bucket_args(tile_key, depths, T, B, q, C, slot_gid):
@@ -119,17 +125,18 @@ def _check_bucket_args(tile_key, depths, T, B, q, C, slot_gid):
         raise ValueError("tile_key and depths must be contiguous")
     if not 0 < T < (1 << 31):
         raise ValueError("T must be in (0, 2^31)")
-    if not (2 <= B <= 32 and B & (B - 1) == 0):
-        raise ValueError("n_buckets must be a power of two in [2, 32] (a lane a bucket)")
+    if B < 2 or B & (B - 1):
+        raise ValueError("n_buckets must be a power of two >= 2")
     if not (32 <= C <= 1024 and C % 32 == 0 and _PACK_C % C == 0):
         raise ValueError(f"C must be a multiple of 32 in [32, 1024] dividing {_PACK_C}")
     if q < 1 or (B * q) % 128:
         raise ValueError("B * quantum must be lane-aligned (a positive multiple of 128)")
     if B * q > 4 * C:
         raise ValueError("headroom B * quantum / C > 4 is never worth the sort")
-    if B * q > _MAX_WINDOW:
-        raise ValueError(f"B * quantum must be at most {_MAX_WINDOW} (the kernel stages each "
-                         f"chunk's window in shared memory)")
+    if _partition_smem(B, q) > _SMEM_OPT_IN:
+        raise ValueError(f"B = {B}, quantum = {q} needs {_partition_smem(B, q)} bytes of shared "
+                         f"memory a block, above {_SMEM_OPT_IN} (the kernel stages each chunk's "
+                         f"window there)")
 
 
 def bucket_partition(tile_key: torch.Tensor, depths: torch.Tensor, T: int, n_buckets: int,

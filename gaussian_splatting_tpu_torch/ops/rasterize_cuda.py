@@ -45,9 +45,15 @@ from gaussian_splatting_tpu_torch.ops.tiling import (
 ALPHA_CLAMP = 0.999
 ALPHA_SKIP = 1.0 / 255.0
 T_EARLY_STOP = 1e-4
-# Tiles per step of the plain forward: bounds its (tiles, 256, chunk)
-# temporaries to ~270 MB each at chunk 256.
+# Tiles and (tile, pixel, entry) elements per step of the plain sweeps: at
+# most 1024 tiles, and (tiles, P, K) temporaries of at most 2^26 floats
+# (~270 MB each, 1024 tiles of 256 pixels at chunk 256).
 _PLAIN_TILE_BATCH = 1024
+_PLAIN_ELEMS = 1 << 26
+# The longest chunk the kernels take (a power of two above 1024 is staged in
+# pieces of 256, csrc/raster_tiles.cuh); the JAX package takes any power of
+# two.
+_MAX_CHUNK = 1 << 30
 # The warp cull's slack against float32 rounding, relative to the largest
 # magnitude of the quadratic form's terms (csrc/raster_tiles.cuh), and the
 # entries per step of its plain mirror's (warps, 32, entries) temporaries.
@@ -69,6 +75,33 @@ def _cumprod_sequential(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _plain_batches(counts: torch.Tensor, chunk: int, P: int):
+    """The tile batches of the plain sweeps: ``(tiles, longest)`` with the
+    tiles in descending order of their counts, so that a batch holds tiles
+    of like length, and each batch's (tiles, P, K) temporaries within
+    ``_PLAIN_ELEMS``, K its longest count cut to the chunk. A chunk's
+    entries past every count of the batch carry nothing (alpha 0, the
+    products unchanged), so the sweeps take K = min(chunk, what is left of
+    the longest count) entries of each chunk."""
+    order = torch.argsort(counts, descending=True, stable=True)
+    cnt = counts[order].tolist()
+    i = 0
+    while i < len(cnt):
+        k = max(1, min(chunk, cnt[i]))
+        n = max(1, min(_PLAIN_TILE_BATCH, _PLAIN_ELEMS // (P * k)))
+        yield order[i:i + n], cnt[i]
+        i += n
+
+
+def _pixel_centres(tiles: torch.Tensor, ts: int, ntx: int):
+    """(B, P, 1) float32 x and y of the pixel centres of ``tiles``, pixels in
+    row-major order."""
+    pidx = torch.arange(ts * ts, device=tiles.device)
+    px = (((tiles % ntx) * ts)[:, None] + pidx % ts).to(torch.float32)[:, :, None] + 0.5
+    py = (((tiles // ntx) * ts)[:, None] + pidx // ts).to(torch.float32)[:, :, None] + 0.5
+    return px, py
+
+
 def fwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor,
                     soa: torch.Tensor, tile_size: int, ntx: int, chunk: int):
     """Plain PyTorch version of the forward kernel. Returns ``(out, pairs)``:
@@ -76,30 +109,25 @@ def fwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor,
     the number of (pixel, entry) pairs the kernel evaluates on these inputs
     (the entries that count plus the one that stops each pixel's chunk).
 
-    A per-chunk loop vectorized over a batch of tiles, with the TPU kernel's
-    chunk-carried stop rule (``rasterize_pallas.py:171-190``): inside a chunk
-    an entry counts while ``tcar * prod_incl > 1e-4``; the carry
-    ``tcar`` becomes the transmittance after the chunk's last counted entry.
-    A pixel stopped in one chunk can therefore take entries of the next."""
+    A per-chunk loop vectorized over a batch of tiles (``_plain_batches``),
+    with the TPU kernel's chunk-carried stop rule
+    (``rasterize_pallas.py:171-190``): inside a chunk an entry counts while
+    ``tcar * prod_incl > 1e-4``; the carry ``tcar`` becomes the
+    transmittance after the chunk's last counted entry. A pixel stopped in
+    one chunk can therefore take entries of the next."""
     T = counts.shape[0]
-    ts = tile_size
-    P = ts * ts
+    P = tile_size * tile_size
     dev = soa.device
     out = torch.zeros((T, 8, P), dtype=torch.float32, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
-    pidx = torch.arange(P, device=dev)
-    kk = torch.arange(chunk, device=dev)
-    for t0 in range(0, T, _PLAIN_TILE_BATCH):
-        t1 = min(T, t0 + _PLAIN_TILE_BATCH)
-        tiles = torch.arange(t0, t1, device=dev)
-        cnt = counts[t0:t1].long()
-        st = tile_starts[t0:t1].long()
-        px = (((tiles % ntx) * ts)[:, None] + pidx % ts).to(torch.float32)[:, :, None] + 0.5
-        py = (((tiles // ntx) * ts)[:, None] + pidx // ts).to(torch.float32)[:, :, None] + 0.5
-        tcar = torch.ones((t1 - t0, P, 1), dtype=torch.float32, device=dev)
-        n_chunks = int(cdiv(int(cnt.max()), chunk)) if t1 > t0 else 0
-        for ci in range(n_chunks):
-            pos = ci * chunk + kk                                  # (K,)
+    for tiles, longest in _plain_batches(counts, chunk, P):
+        cnt = counts[tiles].long()
+        st = tile_starts[tiles].long()
+        px, py = _pixel_centres(tiles, tile_size, ntx)
+        acc = torch.zeros((tiles.shape[0], 5, P), dtype=torch.float32, device=dev)
+        tcar = torch.ones((tiles.shape[0], P, 1), dtype=torch.float32, device=dev)
+        for c0 in range(0, longest, chunk):
+            pos = c0 + torch.arange(min(chunk, longest - c0), device=dev)  # (K,)
             valid = pos[None, :] < cnt[:, None]                    # (B, K)
             idx = torch.where(valid, st[:, None] + pos[None, :], 0)
             data = soa[:10][:, idx]                                # (10, B, K)
@@ -116,11 +144,12 @@ def fwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor,
             mask = tcar * prod_incl > T_EARLY_STOP
             w = torch.where(mask, alpha * tcar * prod_excl, 0.0)  # (B, P, K)
             for row in range(4):                                   # r, g, b, depth
-                out[t0:t1, row] += (w * data[6 + row][:, None, :]).sum(-1)
-            out[t0:t1, 4] += w.sum(-1)
+                acc[:, row] += (w * data[6 + row][:, None, :]).sum(-1)
+            acc[:, 4] += w.sum(-1)
             tcar = tcar * torch.where(mask, prod_incl, 1.0).amin(-1, keepdim=True)
             n_valid = valid.sum(-1)[:, None]
             pairs += torch.minimum(mask.sum(-1) + 1, n_valid).sum()
+        out[tiles, :5] = acc
     return out, pairs
 
 
@@ -138,9 +167,9 @@ def _check_fwd_args(tile_starts, counts, soa, tile_size, chunk):
         raise ValueError("tile_starts, counts and soa must be contiguous")
     if tile_size * tile_size not in (64, 256, 1024):
         raise ValueError("tile_size must be 8, 16 or 32")
-    if not 1 <= chunk <= 1024:
-        raise ValueError("chunk must be in [1, 1024] (the backward keeps 22 rows of it in "
-                         "shared memory: 12 staged, 10 of sums)")
+    if not (1 <= chunk <= 1024 or (chunk & (chunk - 1) == 0 and chunk <= _MAX_CHUNK)):
+        raise ValueError(f"chunk must be in [1, 1024] or a power of two up to {_MAX_CHUNK} "
+                         f"(the kernels stage a longer chunk 256 entries at a time)")
 
 
 def fwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor,
@@ -187,12 +216,11 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
     (pixel, entry) pairs that count and pass the alpha gate, for which the
     kernel computes gradient terms.
 
-    A per-chunk loop vectorized over a batch of tiles. It recomputes the
-    forward of ``fwd_tiles_plain`` (same float32 operations, the sequential
-    product, so the same stop mask) and the per-entry gradients of
-    ``rasterize_pallas.py:338-390`` with the prefix sum of gw * w carried
-    across chunks, summed over each tile's pixels."""
-    T = counts.shape[0]
+    A per-chunk loop vectorized over a batch of tiles (``_plain_batches``).
+    It recomputes the forward of ``fwd_tiles_plain`` (same float32
+    operations, the sequential product, so the same stop mask) and the
+    per-entry gradients of ``rasterize_pallas.py:338-390`` with the prefix
+    sum of gw * w carried across chunks, summed over each tile's pixels."""
     ts = tile_size
     P = ts * ts
     dev = soa.device
@@ -204,23 +232,17 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
     grad[:, :kept] = 0.0
     grad[0, :kept] = float(n_gaussians)
     active = torch.zeros((), dtype=torch.int64, device=dev)
-    pidx = torch.arange(P, device=dev)
-    kk = torch.arange(chunk, device=dev)
-    for t0 in range(0, T, _PLAIN_TILE_BATCH):
-        t1 = min(T, t0 + _PLAIN_TILE_BATCH)
-        tiles = torch.arange(t0, t1, device=dev)
-        cnt = counts[t0:t1].long()
-        st = tile_starts[t0:t1].long()
-        px = (((tiles % ntx) * ts)[:, None] + pidx % ts).to(torch.float32)[:, :, None] + 0.5
-        py = (((tiles // ntx) * ts)[:, None] + pidx // ts).to(torch.float32)[:, :, None] + 0.5
-        g = gout[t0:t1]                                             # (B, 8, P)
-        q = (g * fout[t0:t1]).sum(1)[:, :, None]                    # (B, P, 1)
+    for tiles, longest in _plain_batches(counts, chunk, P):
+        cnt = counts[tiles].long()
+        st = tile_starts[tiles].long()
+        px, py = _pixel_centres(tiles, ts, ntx)
+        g = gout[tiles]                                             # (B, 8, P)
+        q = (g * fout[tiles]).sum(1)[:, :, None]                    # (B, P, 1)
         gc = [g[:, c, :, None] for c in range(5)]                   # (B, P, 1) each
-        tcar = torch.ones((t1 - t0, P, 1), dtype=torch.float32, device=dev)
-        pcar = torch.zeros((t1 - t0, P, 1), dtype=torch.float32, device=dev)
-        n_chunks = int(cdiv(int(cnt.max()), chunk)) if t1 > t0 else 0
-        for ci in range(n_chunks):
-            pos = ci * chunk + kk                                  # (K,)
+        tcar = torch.ones((tiles.shape[0], P, 1), dtype=torch.float32, device=dev)
+        pcar = torch.zeros((tiles.shape[0], P, 1), dtype=torch.float32, device=dev)
+        for c0 in range(0, longest, chunk):
+            pos = c0 + torch.arange(min(chunk, longest - c0), device=dev)  # (K,)
             valid = pos[None, :] < cnt[:, None]                    # (B, K)
             col = torch.where(valid, st[:, None] + pos[None, :], 0)
             data = soa[:12][:, col]                                # (12, B, K)
@@ -255,7 +277,7 @@ def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.
                 torch.where(gate, d_alpha * vis, 0.0).sum(1),
                 *((w * gc[c]).sum(1) for c in range(4)),
             )                                                      # 10 x (B, K)
-            dest = (excl[t0:t1, None] + pos[None, :])[valid]
+            dest = (excl[tiles, None] + pos[None, :])[valid]
             keep = dest < kept
             dest = dest[keep]
             grad[0, dest] = data[11][valid][keep]

@@ -9,7 +9,10 @@ Backends:
 - ``"ref"``  the pure-PyTorch oracle (``rasterize_ref``), any device.
 - ``"cuda"`` binning + the hand-written CUDA kernels (``rasterize_cuda``);
   on CPU tensors the kernels' plain versions stand in.
-- ``"auto"`` resolves to ``"cuda"``.
+- ``"auto"`` resolves to ``"cuda"``; it is ``render``'s default, where the
+  JAX package's is ``"ref"``, so that a bare ``render()`` of CUDA tensors
+  runs the kernels (``tests/test_torch_coverage.py`` records the
+  difference).
 """
 
 from __future__ import annotations

@@ -3,9 +3,12 @@
 a counterpart of the same name in the same-named module of
 ``gaussian_splatting_tpu_torch/`` (``ops/rasterize_pallas.py`` is
 ``ops/rasterize_cuda.py`` there); ``TrainingConfig`` has the same fields;
-and the entry points take the same keyword parameters. Read with ``ast``,
-so nothing is imported. ``ALLOWED_ABSENT`` names each intentional absence
-with its reason."""
+and the entry points take the same keyword parameters; every function
+the two packages share (top-level, or a method of a same-named class)
+gives each parameter it shares the same default. Read with ``ast``, so
+nothing is imported. ``ALLOWED_ABSENT`` names each intentional absence and
+``ALLOWED_DEFAULTS`` each intentional difference of a default, with its
+reason."""
 
 import ast
 import pathlib
@@ -36,6 +39,15 @@ ALLOWED_ABSENT_KWARGS = {
     "_skip_final_sort": "a TPU profiling switch that returns a render-invalid binning",
     "donate": "jax.jit buffer donation; the port's step updates the state in place",
 }
+# (JAX module, function, parameter) -> why the port's default differs.
+ALLOWED_DEFAULTS = {
+    ("ops/render.py", "render", "backend"):
+        "the JAX package's default is 'ref', its oracle; the port's is 'auto' (the CUDA "
+        "kernels), so that a bare render() of CUDA tensors runs the kernels and not an "
+        "O(pixels x gaussians) reference; 'ref' stays one keyword away",
+}
+# The same default written in each framework's terms (JAX -> port).
+EQUIVALENT_DEFAULTS = {"jnp.float32": "torch.float32"}
 # The Pallas kernel builders (``_make_*``) are private: the port's kernels
 # are built from csrc/ by ops/_build.py and bound by their wrappers.
 
@@ -131,3 +143,61 @@ def test_training_config_has_every_field():
     j = fields(JAX_PKG / "training/config.py")
     t = fields(PORT_PKG / "training/config.py")
     assert [f for f in j if f not in t] == []
+
+
+def _functions(path):
+    """Top-level functions and the methods of top-level classes, by
+    ``name`` or ``Class.name``."""
+    out = {}
+    for n in _tree(path).body:
+        if isinstance(n, ast.FunctionDef):
+            out[n.name] = n
+        elif isinstance(n, ast.ClassDef):
+            out.update({f"{n.name}.{m.name}": m for m in n.body
+                        if isinstance(m, ast.FunctionDef)})
+    return out
+
+
+def _defaults(fn):
+    """Parameter -> its default's source text, for the parameters that
+    have one."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    out = {p.arg: ast.unparse(d) for p, d in zip(pos[len(pos) - len(a.defaults):], a.defaults)}
+    out.update({p.arg: ast.unparse(d) for p, d in zip(a.kwonlyargs, a.kw_defaults)
+                if d is not None})
+    return out
+
+
+def _same_default(j, t):
+    try:
+        return ast.literal_eval(j) == ast.literal_eval(t)
+    except ValueError:
+        return EQUIVALENT_DEFAULTS.get(j, j) == t
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_shared_functions_have_the_same_defaults(rel):
+    port = _port_path(rel)
+    if not port.exists():
+        return
+    jf, tf = _functions(JAX_PKG / rel), _functions(port)
+    differ = []
+    for name in sorted(set(jf) & set(tf)):
+        jd, td = _defaults(jf[name]), _defaults(tf[name])
+        t_params, j_params = _params(tf[name]), _params(jf[name])
+        for p in sorted(set(jd) | set(td)):
+            if (rel, name, p) in ALLOWED_DEFAULTS or p not in t_params or p not in j_params:
+                continue
+            if p not in jd or p not in td or not _same_default(jd[p], td[p]):
+                differ.append((name, p, jd.get(p), td.get(p)))
+    assert not differ, f"{rel}: (function, parameter, JAX default, port default) {differ}"
+
+
+def test_allowed_defaults_name_only_real_differences():
+    """Each allowed difference exists: an entry whose defaults came to agree
+    goes."""
+    for (rel, name, p), reason in ALLOWED_DEFAULTS.items():
+        j = _defaults(_functions(JAX_PKG / rel)[name])[p]
+        t = _defaults(_functions(_port_path(rel))[name])[p]
+        assert reason and not _same_default(j, t), (rel, name, p)

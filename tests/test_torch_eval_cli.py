@@ -79,3 +79,33 @@ def test_eval_cli_matches_jax(run, pose_align, capsys):
             assert abs(t["psnr_aligned"] - j["psnr_aligned"]) <= METRIC_ATOL
     assert len(list(t_out.glob("view_*.png"))) == 2
     assert (t_out / "model.ply").exists()
+
+
+def test_eval_cli_takes_more_buckets_and_longer_chunks_than_before(run, capsys, caplog):
+    """A checkpoint whose render meta asks for ``sort_buckets=64`` and
+    ``raster_chunk=2048`` (settings the port used to refuse): the port's
+    eval CLI renders with them, as the log says, and its metrics equal the
+    JAX eval CLI's on the same checkpoint."""
+    import logging
+
+    d, clip = run
+    with np.load(d / "run" / "final.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays["meta_json"].tobytes()).decode())
+    meta["render"].update(sort_buckets=64, raster_chunk=2048)
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    model = d / "wide.npz"
+    np.savez(model, **arrays)
+    common = ["--model", str(model), "--videos", clip, "--num-views", "2", "--frame-stride",
+              "4", "--cache-dir", str(d / "cache")]
+    caplog.set_level(logging.INFO)
+    assert t_eval.main(common + ["--output", str(d / "t_wide"), "--backend", "cuda",
+                                 "--device", "cpu"]) == 0
+    assert "chunk=2048" in caplog.text
+    capsys.readouterr()
+    assert j_eval.main(common + ["--output", str(d / "j_wide"), "--backend", "pallas"]) == 0
+    t = json.loads((d / "t_wide" / "metrics.json").read_text())
+    j = json.loads((d / "j_wide" / "metrics.json").read_text())
+    for a, b in zip(t["per_view"], j["per_view"]):
+        for k in ("l1", "ssim", "psnr"):
+            assert np.isfinite(a[k]) and abs(a[k] - b[k]) <= METRIC_ATOL, (k, a[k], b[k])

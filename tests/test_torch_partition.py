@@ -16,6 +16,7 @@ from gaussian_splatting_tpu.ops.tiling import pack_rows as j_pack_rows
 from gaussian_splatting_tpu_torch.ops.partition import (
     bucket_partition, bucket_partition_plain, partition_soa, quantum_for)
 from gaussian_splatting_tpu_torch.ops.tiling import binning_slots
+from test_partition import _np_qpartition
 from torch_parity import screen_gaussians, to_torch
 
 
@@ -40,6 +41,9 @@ CASES = {
         {"sentinel": tuple(10_000.0 + k for k in range(8)), "n_valid": 900,
          "drop_key_above": 700.0}),
     "bucket_shift": (512, 4, 64, 128, _keys_tile_sub, {"sentinel": 1e9, "bucket_shift": 4}),
+    # More buckets than a warp has lanes, at the bucket binning's C and
+    # default headroom (quantum 12).
+    "B64": (2048, 64, 12, 512, _keys_uniform, {"sentinel": 997.0}),
 }
 
 
@@ -65,6 +69,27 @@ def test_partition_matches_jax_exactly(rng, case):
     np.testing.assert_array_equal(to, jo)
     if case == "overflow_counted":
         assert td.sum() > 0
+
+
+@pytest.mark.parametrize("B", [256, 2048])
+def test_partition_up_to_2048_buckets_matches_jax_reference(rng, B):
+    """B = 256 (quantum 3) and B = 2048 (quantum 1, B q = 4C, the largest
+    the JAX package takes at C = 512 and headroom 1.5), with overflow,
+    against the reference the JAX partition kernel is held to
+    (``tests/test_partition.py::_np_qpartition``). The JAX kernel itself
+    unrolls a loop over the buckets: in interpret mode it compiled for 8
+    minutes at B = 2048 on the CPU, so it is compared at B = 64 above."""
+    M, C = 2048, 512
+    q = quantum_for(C, B, 1.5)
+    x = rng.normal(size=(16, M)).astype(np.float32)
+    x[0] = rng.integers(0, 5000, size=M).astype(np.float32)
+    out, counts, drops = partition_soa(torch.as_tensor(x), B, q, key_row=0, sentinel=5000.0,
+                                       C=C)
+    ref = _np_qpartition(x, B, q, C, 0, (5000.0,) * B)
+    np.testing.assert_array_equal(out.numpy(), ref[0])
+    np.testing.assert_array_equal(counts.numpy(), ref[1])
+    np.testing.assert_array_equal(drops.numpy(), ref[2])
+    assert int(drops.sum()) > 0
 
 
 def test_partition_then_batched_sort_matches_flat_sort(rng):
@@ -132,6 +157,7 @@ BUCKET_CASES = {
     "B2": (2, 1.5, {}),
     "B4": (4, 1.5, {}),
     "B8": (8, 1.5, {}),
+    "B64": (64, 1.5, {"n": 400, "width": 256, "height": 192}),
     "B2_starved": (2, 0.05, {"n": 400, "radius_scale": 2.0, "opacity_range": (0.05, 0.3)}),
 }
 
@@ -145,8 +171,8 @@ def test_bucket_partition_matches_jax(rng, case):
     = row 11 where row 15 marks a kept column, T << 32 and 0 on the pads;
     counts and drops equal."""
     B, headroom, kw = BUCKET_CASES[case]
-    width, height, max_t = 64, 48, 16
     kw = dict(kw)
+    width, height, max_t = kw.pop("width", 64), kw.pop("height", 48), 16
     n = kw.pop("n", 150)
     m2, c, col, o, d, r = screen_gaussians(rng, n, width, height, **kw)
     tm, tc, to_, tr = to_torch(m2, c, o, r)
@@ -175,11 +201,39 @@ def test_bucket_partition_matches_jax(rng, case):
     np.testing.assert_array_equal(counts.numpy(), jc)
     np.testing.assert_array_equal(drops.numpy(), jd)
     assert int(counts.sum()) + int(drops.sum()) == int((tile_key < T).sum())
-    if case == "B2_starved":
+    if case in ("B2_starved", "B64"):
         assert int(drops.sum()) > 0
     for a, b in zip((key, gid, counts, drops),
                     bucket_partition_plain(tile_key, depths, T, B, q)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [256, 2048])
+def test_bucket_partition_up_to_2048_buckets(rng, B):
+    """The fused partition at B = 256 and 2048 against the general
+    contract on the bucket binning's input (the JAX package's ``pack_rows``
+    of the slots' tile, depth and gid, as in ``test_bucket_partition_matches_jax``)
+    through ``_np_qpartition``, the JAX partition kernel's reference."""
+    width, height, n = 256, 192, 400
+    m2, c, _, o, d, r = screen_gaussians(rng, n, width, height)
+    tm, tc, to_, tr = to_torch(m2, c, o, r)
+    tile_key, _, _, _, T = binning_slots(tm, tc, to_, tr, width, height, 16, 16)
+    q = quantum_for(512, B, 1.5)
+    g = np.arange(tile_key.shape[0]) % n
+    rows = (tile_key.numpy().astype(np.float32), d[g]) + (np.zeros_like(d[g]),) * 9 + (
+        np.arange(n, dtype=np.float32)[g],)
+    packed = np.asarray(j_pack_rows(tuple(jnp.asarray(x) for x in rows), sentinel=float(T),
+                                    interpret=True))
+    ro, rc, rd = _np_qpartition(packed, B, q, 512, 0, (float(T),) * B,
+                                drop_key_above=float(T))
+    key, gid, counts, drops = bucket_partition(tile_key, torch.as_tensor(d), T, B, q)
+    valid = ro[15] == 1
+    want_key = np.where(valid, (ro[0].astype(np.int64) << 32) | _order_bits(ro[1]), T << 32)
+    np.testing.assert_array_equal(key.numpy(), want_key)
+    np.testing.assert_array_equal(gid.numpy(), np.where(valid, ro[11].astype(np.int32), 0))
+    np.testing.assert_array_equal(counts.numpy(), rc)
+    np.testing.assert_array_equal(drops.numpy(), rd)
+    assert int(counts.sum()) + int(drops.sum()) == int((tile_key < T).sum())
 
 
 def test_bucket_partition_checks_arguments():
@@ -196,9 +250,9 @@ def test_bucket_partition_checks_arguments():
     with pytest.raises(ValueError):
         bucket_partition(tile, depths, 10, 3, 64)                  # B not a power of two
     with pytest.raises(ValueError):
-        bucket_partition(tile, depths, 10, 64, 16)                 # B above 32
+        bucket_partition(tile, depths, 10, 4096, 1)                # B q above 4C
     with pytest.raises(ValueError):
-        bucket_partition(tile, depths, 10, 32, 128, C=1024)        # window above 3584
+        bucket_partition(tile, depths, 10, 32, 128, C=1024)        # stages above 227 KB
     with pytest.raises(ValueError):
         bucket_partition(tile, depths, 10, 4, 64, C=384)           # C does not divide 8192
     with pytest.raises(ValueError):

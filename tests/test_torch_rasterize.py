@@ -228,7 +228,10 @@ def test_fwd_tiles_checks_arguments():
     with pytest.raises(ValueError):
         rasterize_cuda.fwd_tiles(starts, counts, soa.double(), 16, 2, 128)
     with pytest.raises(ValueError):
-        rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 4096)
+        rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 1536)   # above 1024, not 2^k
+    with pytest.raises(ValueError):
+        rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 0)
+    assert rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 4096).abs().sum() == 0
     assert rasterize_cuda.fwd_tiles(starts, counts, soa, 16, 2, 128).abs().sum() == 0
 
 
@@ -297,3 +300,60 @@ def test_plain_backward_on_gapped_segments_matches_jax(rng, frac):
     assert gcap == j_gcap
     assert unit_meta.tolist() == [j_nw, j_nd]
     assert (j_nd > 0) == (frac < 1.0)
+
+
+def _deep_tiles_scene(rng, n=2600):
+    """Four 16x16 tiles (a 32x32 image) that every one of ``n`` faint, wide
+    gaussians covers, so each tile holds n > 2048 entries: at the centre
+    the transmittance falls to 1e-4 after about 1,100 of them, inside the
+    first 2048-entry chunk, and the pixels that stop there start again in
+    the second."""
+    means2d = rng.uniform(14.0, 18.0, size=(n, 2)).astype(np.float32)
+    conics = np.tile(np.asarray([[0.004, 0.0, 0.004]], np.float32), (n, 1))
+    conics[:, 1] = rng.uniform(-0.001, 0.001, size=n)
+    colors = rng.uniform(size=(n, 3)).astype(np.float32)
+    opac = rng.uniform(0.004, 0.012, size=n).astype(np.float32)
+    depths = rng.uniform(1.0, 10.0, size=n).astype(np.float32)
+    radii = np.full((n,), 24, np.int32)
+    return means2d, conics, colors, opac, depths, radii
+
+
+def test_chunk_2048_matches_jax_pallas(rng):
+    """``chunk=2048``, a chunk the kernels stage in two pieces of 1024,
+    on tiles of more than 2048 entries whose pixels stop inside the first
+    chunk: the image, the stats and the gradients of every input (the loss
+    and tolerances of ``test_gradients_match_jax_pallas_and_oracle``) and
+    the gradient stream's [n_written, n_dropped, grad_cap] against the JAX
+    ``rasterize_tiled`` / ``rasterize_grad_meta`` in interpret mode. The
+    chunk is part of the result: one 4096-entry chunk gives another image."""
+    import jax
+    import jax.numpy as jnp
+    from gaussian_splatting_tpu.ops.rasterize_pallas import rasterize_grad_meta as j_meta
+
+    width = height = 32
+    args = _deep_tiles_scene(rng)
+    timg = rng.uniform(size=(height, width, 3)).astype(np.float32)
+    b = rasterize_cuda.isect_and_sort(*to_torch(*args), width, height, 16, 2048, 16)
+    assert int(b.counts.min()) > 2048
+
+    def j_loss(*a):
+        img, alpha, depth, stats = j_raster(*a, jnp.asarray(args[5]), width, height, chunk=2048,
+                                            interpret=True, with_stats=True)
+        return _grad_loss(img, alpha, depth, jnp.asarray(timg), True), (img, alpha, depth,
+                                                                         stats)
+
+    j_g, j_out = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(*to_jax(*args[:5]))
+    xs = [x.requires_grad_(True) for x in to_torch(*args[:5])]
+    t_out = t_raster(*xs, torch.as_tensor(args[5]), width, height, chunk=2048, with_stats=True)
+    _grad_loss(*t_out[:3], torch.as_tensor(timg), True).backward()
+    _assert_images([o.detach() for o in t_out[:3]], j_out)
+    assert {k: int(v) for k, v in t_out[3].items()} == {k: int(v) for k, v in j_out[3].items()}
+    for name, x, jg in zip(["means2d", "conics", "colors", "opacities", "depths"], xs, j_g):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(x.grad.numpy(), jg, atol=2e-4 * (np.abs(jg).max() + 1e-8),
+                                   rtol=1e-3, err_msg=name)
+    j = tuple(int(v) for v in j_meta(*to_jax(*args), width, height, chunk=2048, interpret=True))
+    assert rasterize_cuda.rasterize_grad_meta(*to_torch(*args), width, height,
+                                              chunk=2048) == j
+    one = t_raster(*to_torch(*args), width, height, chunk=4096)
+    assert not torch.equal(one[0], t_out[0].detach())

@@ -199,6 +199,54 @@ def test_bucket_overflow_counted_matches_jax(rng):
     assert int(tb.n_isect) + int(tb.n_bucket_dropped) == int(dense.n_isect)
 
 
+def test_bucket_binning_more_buckets_than_lanes_matches_jax(rng):
+    """``sort_buckets=64``, more buckets than a warp has lanes (the port's
+    former limit, still the narrow kernel's): at the default headroom 1.5
+    a 512-slot chunk keeps 12 slots a bucket, so the busiest buckets
+    overflow. Tables, counters (1,230 entries kept, 6 dropped) and
+    segments equal the JAX package's; kept + dropped is the dense count."""
+    width, height = 256, 192
+    args = screen_gaussians(rng, 400, width, height)
+    jb = j_isect(*to_jax(*args), width, height, 16, 128, 16, sort_buckets=64,
+                 interpret=True)
+    tb = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16,
+                                 sort_buckets=64)
+    _assert_same_bucket_binning(jb, tb)
+    assert (int(tb.n_isect), int(tb.n_bucket_dropped)) == (1230, 6)
+    dense = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16)
+    assert int(tb.n_isect) + int(tb.n_bucket_dropped) == int(dense.n_isect)
+
+
+@pytest.mark.parametrize("buckets", [256, 2048])
+def test_bucket_binning_up_to_2048_buckets(rng, buckets):
+    """The bucket binning at B = 256 (quantum 3) and B = 2048 (quantum 1,
+    the largest B that the JAX package takes at headroom 1.5: B q = 4C)
+    with a headroom that keeps every slot: every tile's segment equals the
+    dense binning's, and tile_starts[T] = B * cap lies past them all."""
+    width, height = 256, 192
+    args = screen_gaussians(rng, 400, width, height)
+    headroom = 4.0 if buckets == 256 else 1.5
+    tb = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16,
+                                 sort_buckets=buckets, bucket_headroom=headroom)
+    dense = t_tiling.isect_and_sort(*to_torch(*args), width, height, 16, 128, 16)
+    starts, counts = tb.tile_starts.numpy(), tb.counts.numpy()
+    kept = int(tb.n_isect) + int(tb.n_bucket_dropped)
+    assert kept == int(dense.n_isect) and int(counts.sum()) == int(tb.n_isect)
+    if buckets == 256:
+        assert int(tb.n_bucket_dropped) == 0
+        np.testing.assert_array_equal(counts, dense.counts.numpy())
+    assert starts[-1] > (starts[:-1] + counts).max()
+    for t in np.nonzero(counts)[0]:
+        s, d, c = starts[t], int(dense.tile_starts[t]), counts[t]
+        if buckets == 256:
+            assert torch.equal(tb.sorted_soa[:12, s:s + c], dense.sorted_soa[:12, d:d + c])
+        else:  # a tile keeps a stable subsequence of its dense segment
+            seg = dense.sorted_soa[11, d:d + int(dense.counts[t])].tolist()
+            got = tb.sorted_soa[11, s:s + c].tolist()
+            it = iter(seg)
+            assert all(g in it for g in got)
+
+
 @pytest.mark.parametrize("counts,w_cap", [([300, 0, 256, 1, 0], 8), ([0, 0, 0], 4),
                                           ([513, 7, 0, 256, 255], 12)])
 def test_chunk_queue_matches_jax(counts, w_cap):
