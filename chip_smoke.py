@@ -358,24 +358,24 @@ def kernel_ms(fn, name, reps=10):
 
 
 def launch_counters():
-    """The launch-count owners of the eight kernels, by kernel name."""
-    from gaussian_splatting_tpu_torch.ops import partition, rasterize_cuda, segsum, tiling
-
-    return {"pack_soa": tiling.pack_soa, "rasterize_fwd": rasterize_cuda.fwd_tiles,
-            "rasterize_bwd": rasterize_cuda.bwd_tiles, "pack_rows": tiling.pack_rows,
-            "segsum": segsum.segment_sum_sorted,
-            "rasterize_fwd_q": rasterize_cuda.fwd_tiles_q,
-            "rasterize_bwd_q": rasterize_cuda.bwd_tiles_q,
-            "partition": partition.bucket_partition}
+    """The launch counters of the eight kernels (``utils/profiling``), by
+    kernel name."""
+    return {k: f"launch.{k}" for k in ("pack_soa", "rasterize_fwd", "rasterize_bwd",
+                                        "pack_rows", "segsum", "rasterize_fwd_q",
+                                        "rasterize_bwd_q", "partition")}
 
 
 def reset_launches():
-    for fn in launch_counters().values():
-        fn.launches = 0
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    profiling.reset_counters(*launch_counters().values())
 
 
 def read_launches():
-    return {k: fn.launches for k, fn in launch_counters().items()}
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    counts = profiling.counters()
+    return {k: counts.get(c, 0) for k, c in launch_counters().items()}
 
 
 def bench_scene(n, width, height):

@@ -22,6 +22,7 @@ from gaussian_splatting_tpu_torch.ops.render import (
     render,
     resolve_backend,
 )
+from gaussian_splatting_tpu_torch.utils import profiling
 
 _CACHE_SIZE = 32
 
@@ -62,6 +63,10 @@ class GaussianRasterizer:
         """params: a GaussianParams, or a dict with means3D / scales (raw
         log) / rotations / opacities (raw logit) / shs; viewpoint: a dict
         with world_view_transform (4, 4) and K (3, 3)."""
+        with profiling.annotate("render.frame"):
+            return self._render_single(params, viewpoint, bg)
+
+    def _render_single(self, params, viewpoint: Dict, bg) -> RenderOut:
         vm = viewpoint["world_view_transform"]
         viewmat = (vm.detach().cpu().numpy() if torch.is_tensor(vm)
                    else np.asarray(vm)).astype(np.float32)

@@ -36,6 +36,7 @@ import torch
 
 from gaussian_splatting_tpu_torch.ops import _build
 from gaussian_splatting_tpu_torch.ops.tiling import _PACK_C, _float_order_bits, cdiv
+from gaussian_splatting_tpu_torch.utils import profiling
 
 
 def quantum_for(C: int, B: int, headroom: float) -> int:
@@ -183,11 +184,8 @@ def bucket_partition(tile_key: torch.Tensor, depths: torch.Tensor, T: int, n_buc
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bucket partition kernel launch failed: cudaError {rc}")
-    bucket_partition.launches += 1
+    profiling.count("launch.partition")
     return key, gid, counts_drops[0], counts_drops[1]
-
-
-bucket_partition.launches = 0
 
 
 def _check_args(x, B, q, key_row, C, bucket_shift, sentinel):

@@ -41,6 +41,7 @@ from gaussian_splatting_tpu_torch.ops.tiling import (
     reduce_padded_grads,
     total_slots,
 )
+from gaussian_splatting_tpu_torch.utils import profiling
 
 ALPHA_CLAMP = 0.999
 ALPHA_SKIP = 1.0 / 255.0
@@ -197,11 +198,8 @@ def fwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_fwd kernel launch failed: cudaError {rc}")
-    fwd_tiles.launches += 1
+    profiling.count("launch.rasterize_fwd")
     return out
-
-
-fwd_tiles.launches = 0
 
 
 def bwd_tiles_plain(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor,
@@ -423,11 +421,8 @@ def bwd_tiles(tile_starts: torch.Tensor, counts: torch.Tensor, soa: torch.Tensor
                 float(n_gaussians), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_bwd kernel launch failed: cudaError {rc}")
-    bwd_tiles.launches += 1
+    profiling.count("launch.rasterize_bwd")
     return grad, meta[:2]
-
-
-bwd_tiles.launches = 0
 
 
 def _check_queue_args(wtile, cum, n_work, counts):
@@ -496,11 +491,8 @@ def fwd_tiles_q(wtile: torch.Tensor, cum: torch.Tensor, tile_starts: torch.Tenso
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_fwd_q kernel launch failed: cudaError {rc}")
-    fwd_tiles_q.launches += 1
+    profiling.count("launch.rasterize_fwd_q")
     return out
-
-
-fwd_tiles_q.launches = 0
 
 
 def bwd_tiles_q(wtile: torch.Tensor, cum: torch.Tensor, tile_starts: torch.Tensor,
@@ -537,11 +529,8 @@ def bwd_tiles_q(wtile: torch.Tensor, cum: torch.Tensor, tile_starts: torch.Tenso
                 float(n_gaussians), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_bwd_q kernel launch failed: cudaError {rc}")
-    bwd_tiles_q.launches += 1
+    profiling.count("launch.rasterize_bwd_q")
     return grad, meta[:2]
-
-
-bwd_tiles_q.launches = 0
 
 
 def n_sort_slots(n_gaussians: int, max_t: int, class_budgets=None, sort_bands: int = 0) -> int:
@@ -640,8 +629,10 @@ class _RasterizeTiled(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, depths, radii, cfg):
-        b = _binned(cfg, means2d, conics, colors, opacities, depths, radii)
-        out = _run_fwd(cfg, b)
+        with profiling.annotate("render.binning"):
+            b = _binned(cfg, means2d, conics, colors, opacities, depths, radii)
+        with profiling.annotate("render.raster_fwd"):
+            out = _run_fwd(cfg, b)
         n_grad_dropped = torch.clamp_min(b.n_isect + cfg.chunk - cfg.grad_cap, 0)
         n_budget_dropped = b.n_budget_dropped + b.n_bucket_dropped
         ctx.mark_non_differentiable(b.n_isect, b.n_dropped, n_budget_dropped,
@@ -657,12 +648,14 @@ class _RasterizeTiled(torch.autograd.Function):
         soa, tile_starts, counts, out = ctx.saved_tensors
         N = ctx.n_gaussians
         g = torch.zeros_like(out) if g_out is None else g_out.contiguous()
-        grad, meta = _run_bwd(cfg, tile_starts, counts, soa, g, out, N)
-        gr = reduce_padded_grads(grad, N, meta[0], with_depth=cfg.depth_grad,
-                                 sort_slices=cfg.reduce_slices)
-        d_means2d = torch.stack([gr["dmx"], gr["dmy"]], dim=-1)
-        d_conics = torch.stack([gr["dca"], gr["dcb"], gr["dcc"]], dim=-1)
-        d_colors = torch.stack([gr["dr"], gr["dg"], gr["db"]], dim=-1)
+        with profiling.annotate("render.raster_bwd"):
+            grad, meta = _run_bwd(cfg, tile_starts, counts, soa, g, out, N)
+        with profiling.annotate("render.reduce"):
+            gr = reduce_padded_grads(grad, N, meta[0], with_depth=cfg.depth_grad,
+                                     sort_slices=cfg.reduce_slices)
+            d_means2d = torch.stack([gr["dmx"], gr["dmy"]], dim=-1)
+            d_conics = torch.stack([gr["dca"], gr["dcb"], gr["dcc"]], dim=-1)
+            d_colors = torch.stack([gr["dr"], gr["dg"], gr["db"]], dim=-1)
         return d_means2d, d_conics, d_colors, gr["dop"], gr["ddepth"], None, None
 
 

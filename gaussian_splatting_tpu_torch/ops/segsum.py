@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from gaussian_splatting_tpu_torch.ops import _build
+from gaussian_splatting_tpu_torch.utils import profiling
 
 
 def _check_args(stacked: torch.Tensor, n_segments: int, n_rows: int) -> None:
@@ -71,8 +72,5 @@ def segment_sum_sorted(stacked: torch.Tensor, n_segments: int,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segsum kernel launch failed: cudaError {rc}")
-    segment_sum_sorted.launches += 1
+    profiling.count("launch.segsum")
     return out
-
-
-segment_sum_sorted.launches = 0

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from gaussian_splatting_tpu_torch.ops import _build
+from gaussian_splatting_tpu_torch.utils import profiling
 
 # A gaussian with opacity below the per-pixel contribution gate can never
 # contribute: alpha = op * exp(-sigma) <= op. Culling it in binning is exact.
@@ -388,11 +389,9 @@ def pack_soa(records: torch.Tensor, gid: torch.Tensor, pad: int,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pack_soa kernel launch failed: cudaError {rc}")
-    pack_soa.launches += 1
+    profiling.count("launch.pack_soa")
     return out
 
-
-pack_soa.launches = 0
 
 
 @functools.lru_cache(maxsize=4)
@@ -801,11 +800,9 @@ def pack_rows(src: torch.Tensor, perm: torch.Tensor, key_sorted: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pack_rows kernel launch failed: cudaError {rc}")
-    pack_rows.launches += 1
+    profiling.count("launch.pack_rows")
     return out
 
-
-pack_rows.launches = 0
 
 def sorted_gid_key(grad_soa: torch.Tensor, n_gaussians: int, n_valid: torch.Tensor,
                    col0: int, m: int):

@@ -2,7 +2,8 @@
 step.py``): renders of a view batch through the kernels, the photometric
 loss, one backward through the backward kernel and the gradient reduce,
 per-group Adam, the scale ceiling, the densify accumulators and optional
-camera-pose refinement.
+camera-pose refinement. Spans (``utils/profiling``): ``step.loss`` and its
+backward ``step.loss.bwd`` a view, ``step.backward``, ``step.adam``.
 
 PyTorch runs eagerly: a Python loop over the batch takes the place of the
 JAX ``lax.scan``, and the step updates the state's tensors in place (no copy
@@ -33,6 +34,7 @@ from gaussian_splatting_tpu_torch.training.optimizer import (
     group_lrs,
     xyz_lr_schedule,
 )
+from gaussian_splatting_tpu_torch.utils import profiling
 
 STAT_KEYS = ("n_isect", "n_dropped", "n_budget_dropped", "n_grad_dropped")
 
@@ -126,8 +128,11 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                 depth_grad=False, device=dev)
             radii = out.radii.detach()
             radii_max = radii if radii_max is None else torch.maximum(radii_max, radii)
-            loss, m = photometric_loss(out.render, batch.images[b], config.lambda_dssim,
-                                       dtype=config.loss_dtype)
+            with profiling.annotate("step.loss"):
+                mark = profiling.grad_span("step.loss.bwd")
+                loss, m = photometric_loss(mark.input(out.render), batch.images[b],
+                                           config.lambda_dssim, dtype=config.loss_dtype)
+                loss = mark.outputs(loss)
             total = total + loss
             for k in m_acc:
                 m_acc[k] = m_acc[k] + m[k].detach()
@@ -150,7 +155,8 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
         reg = scale_ratio_reg(leaves.log_scales, gauss.alive, config.scale_reg_max_ratio,
                               config.scale_reg_weight)
         loss = total / B + reg
-        loss.backward()
+        with profiling.annotate("step.backward"):
+            loss.backward()
         grads = GaussianParams(**{
             k: (getattr(leaves, k).grad if getattr(leaves, k).grad is not None
                 else torch.zeros_like(getattr(leaves, k))) for k in PARAM_KEYS})
@@ -159,7 +165,7 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
         if want_stats:
             metrics.update({f"stats/{k}": v for k, v in s_acc.items()})
 
-        with torch.no_grad():
+        with torch.no_grad(), profiling.annotate("step.adam"):
             xyz_lr = xyz_lr_schedule(config, state.iteration)
             adam_update(grads, state.opt, gauss.params, group_lrs(config, xyz_lr),
                         b1=config.adam_b1, b2=config.adam_b2, eps=config.adam_eps)

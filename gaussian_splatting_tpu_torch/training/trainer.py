@@ -27,6 +27,14 @@ export) runs on the gathered state identically on every rank, with the same
 seeds and generators, and densify re-shards its result; the opacity reset
 is elementwise and runs on the shards. Only global rank 0 writes files and
 logs.
+
+Spans (``utils/profiling``): ``train.batch`` (the batch's gather and uint8
+to float conversion on the device), ``train.step``, ``train.log`` (the
+scalar record, whose reads wait for the device, and its write), and one a
+host-cadenced event: ``train.densify``, ``train.grow``,
+``train.watch_budgets``, ``train.watch_tile_cap``,
+``train.probe_grad_buffer``, ``train.validate``, ``train.histograms``,
+``train.checkpoint``.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from gaussian_splatting_tpu_torch.training.step import (
     make_train_step,
     pose_state_init,
 )
+from gaussian_splatting_tpu_torch.utils import profiling
 from gaussian_splatting_tpu_torch.utils.metrics import MetricsLogger, NullLogger
 
 log = logging.getLogger(__name__)
@@ -512,10 +521,12 @@ class GaussianTrainer:
         self._last_rebudget_iter = -(10**9)
 
         while it < cfg.iterations:
-            batch = gather_batch(batch_views[it - start_iter])
+            with profiling.annotate("train.batch"):
+                batch = gather_batch(batch_views[it - start_iter])
             sh_deg = self._active_sh_degree(it)
             step = get_step(sh_deg, state.gauss.capacity)
-            state, metrics = step(state, batch)
+            with profiling.annotate("train.step"):
+                state, metrics = step(state, batch)
             it += 1
             window_iters += 1
             # The whole state, gathered on a mesh at the first event that
@@ -533,8 +544,10 @@ class GaussianTrainer:
                 whole = full()
                 if (int(whole.gauss.n_alive()) > 0.85 * whole.gauss.capacity
                         and whole.gauss.capacity < cfg.max_gaussians):
-                    whole = self._grow(whole, out, extent)
-                whole = self._densify(whole, extent, it)
+                    with profiling.annotate("train.grow"):
+                        whole = self._grow(whole, out, extent)
+                with profiling.annotate("train.densify"):
+                    whole = self._densify(whole, extent, it)
                 state = self._shard(whole)
 
             # Opacity reset (elementwise: on the shards too).
@@ -547,27 +560,32 @@ class GaussianTrainer:
                 sps = window_iters / dt if dt > 0 else 0.0
                 t_window = time.time()
                 window_iters = 0
-                rec = {
-                    "loss": float(metrics["loss"]),
-                    "train/l1": float(metrics["l1"]),
-                    "train/ssim": float(metrics["ssim"]),
-                    "train/psnr": float(metrics["psnr"]),
-                    "train/scale_reg": float(metrics["scale_reg"]),
-                    "lr/xyz": float(metrics["xyz_lr"]),
-                    "n_gaussians": int(full().gauss.n_alive()),
-                    "sh_degree": sh_deg,
-                    "steps_per_sec": sps,
-                }
-                rec.update({k: float(v) for k, v in metrics.items()
-                            if k.startswith("grad_norm/")})
-                # Overflow counters: tile cap, class budgets, grad buffer.
-                rec.update({k: int(v) for k, v in metrics.items() if k.startswith("stats/")})
-                self.logger.log(rec, step=it)
-                cfg = self._watch_budgets(cfg, rec, full(), dataset, it)
-                cfg = self._watch_tile_cap(cfg, rec, full(), dataset, it)
+                with profiling.annotate("train.log"):
+                    rec = {
+                        "loss": float(metrics["loss"]),
+                        "train/l1": float(metrics["l1"]),
+                        "train/ssim": float(metrics["ssim"]),
+                        "train/psnr": float(metrics["psnr"]),
+                        "train/scale_reg": float(metrics["scale_reg"]),
+                        "lr/xyz": float(metrics["xyz_lr"]),
+                        "n_gaussians": int(full().gauss.n_alive()),
+                        "sh_degree": sh_deg,
+                        "steps_per_sec": sps,
+                    }
+                    rec.update({k: float(v) for k, v in metrics.items()
+                                if k.startswith("grad_norm/")})
+                    # Overflow counters: tile cap, class budgets, grad buffer.
+                    rec.update({k: int(v) for k, v in metrics.items()
+                                if k.startswith("stats/")})
+                    self.logger.log(rec, step=it)
+                with profiling.annotate("train.watch_budgets"):
+                    cfg = self._watch_budgets(cfg, rec, full(), dataset, it)
+                with profiling.annotate("train.watch_tile_cap"):
+                    cfg = self._watch_tile_cap(cfg, rec, full(), dataset, it)
 
             if it % cfg.log_hist_interval == 0:
-                self._log_histograms(full(), it)
+                with profiling.annotate("train.histograms"):
+                    self._log_histograms(full(), it)
 
             if cfg.log_image_interval and it % cfg.log_image_interval == 0:
                 try:
@@ -581,7 +599,8 @@ class GaussianTrainer:
                     log.warning("train image log failed: %s", e)
 
             if n_val > 0 and it % cfg.val_interval == 0:
-                vm = self.validate(full(), gather_batch, val_idx, sh_deg, width, height)
+                with profiling.annotate("train.validate"):
+                    vm = self.validate(full(), gather_batch, val_idx, sh_deg, width, height)
                 if vm:
                     self.logger.log(vm, step=it)
 
@@ -590,16 +609,18 @@ class GaussianTrainer:
             # near-full occupancy.
             if (self.backend == "cuda" and cfg.grad_buffer_frac < 1.0
                     and it % cfg.val_interval == 0):
-                cfg = self._probe_grad_buffer(cfg, full(), gather_batch, train_idx, sh_deg,
-                                              width, height, it)
+                with profiling.annotate("train.probe_grad_buffer"):
+                    cfg = self._probe_grad_buffer(cfg, full(), gather_batch, train_idx,
+                                                  sh_deg, width, height, it)
 
             if it % cfg.checkpoint_interval == 0:
-                whole = full()
-                if self._is_main:
-                    ck = out / f"checkpoint_{it}.npz"
-                    save_checkpoint(str(ck), whole, extra=self._render_meta(extent))
-                    export_state_ply(whole.gauss, str(out / f"checkpoint_{it}.ply"))
-                    log.info("checkpoint @%d -> %s", it, ck)
+                with profiling.annotate("train.checkpoint"):
+                    whole = full()
+                    if self._is_main:
+                        ck = out / f"checkpoint_{it}.npz"
+                        save_checkpoint(str(ck), whole, extra=self._render_meta(extent))
+                        export_state_ply(whole.gauss, str(out / f"checkpoint_{it}.ply"))
+                        log.info("checkpoint @%d -> %s", it, ck)
 
         state = self._full(state)
         self._save_final(state, out, extent)

@@ -29,6 +29,9 @@ ALLOWED_ABSENT = {
         "the capacity of the chunk-aligned gradient buffer behind TileBinning.padded_starts, "
         "which no JAX kernel reads any more (the backward appends compactly); the port's "
         "TileBinning has no padded_starts",
+    ("utils/profiling.py", "flops_accounting"):
+        "TPU v5e pair-op counts over every pair that nothing read; the port's benchmark "
+        "counts operations and bytes from the work its inputs need (portbench/work.py)",
 }
 # (entry point, keyword) -> why the port's entry point does not take it.
 ALLOWED_ABSENT_KWARGS = {
