@@ -4,7 +4,7 @@ kernels against its plain PyTorch version.
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (any failure exits nonzero and prints no result):
-1. build the eight kernels in ``gaussian_splatting_tpu_torch/csrc/`` with
+1. build the nine kernel sources in ``gaussian_splatting_tpu_torch/csrc/`` with
    nvcc for sm_90a (one process per source, all at once) and print each
    kernel's registers and spills;
 2. the bench scene of ``bench.py`` (numpy seed 0, 1M screen-space
@@ -175,9 +175,24 @@ Phases (any failure exits nonzero and prints no result):
    plain versions, nothing blended after the stop within a chunk.
    ``parent_alone(DIR)`` holds the old settings' kernels of another
    checkout against this one's, outputs and times in turns.
+13. the projection + SH kernel pair (``project_sh_phase``, after phase 12;
+   alone: ``project_sh_alone``) at the shapes of the benchmark's three
+   cells (1.5M slots at 1920x1080, 4.665M at 1297x840, a third of them
+   dead; SH 3, one view; the viewer's cell forward only): the forward's
+   outputs within 1e-5 of their plain version's largest magnitude and radii
+   equal but for 1 slot in 1e5, by one pixel at most; the backward's
+   gradients under seeded cotangents on the visible slots within 1e-4 of
+   each leaf's largest plain magnitude; the times of the pair, of each
+   kernel alone, of the plain version and of autograd through the plain
+   code (the parent's path), the byte bound and the peak memory; every
+   other SH degree (0-2 over the K = 16 buffer) and the antialiased mode,
+   forward and backward at the first cell's shapes under the same gates;
+   and through phases 4 and 5, the forward launched once a render and the
+   pair once a training view, no view on the autograd path.
 
-Output: the kernels JSON line (each row also with ``kernel_ms``, the
-kernel's profiler time, ``trainer_launches``, its launches in phase 8,
+Output: the kernels JSON line (phase 13's numbers under ``project_sh``;
+each row also with ``kernel_ms``, the kernel's profiler time,
+``trainer_launches``, its launches in phase 8,
 ``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
 ``mesh_launches``, in phase 10's sharded steps and trainer, and
 ``binning_modes_launches`` / ``binning_modes_max_abs_err``, its launches
@@ -306,7 +321,7 @@ SEGSUM_ATOL_FRAC = 1e-5
 # The raster kernels' alpha gate (raster_common.cuh::kAlphaSkip).
 ALPHA_SKIP = np.float32(1.0 / 255.0)
 KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
-           "rasterize_fwd_q", "rasterize_bwd_q", "partition")
+           "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh")
 
 
 def log(msg):
@@ -358,11 +373,12 @@ def kernel_ms(fn, name, reps=10):
 
 
 def launch_counters():
-    """The launch counters of the eight kernels (``utils/profiling``), by
-    kernel name."""
+    """The launch counters of the eight kernels and of the projection + SH
+    pair's two (``utils/profiling``), by kernel name."""
     return {k: f"launch.{k}" for k in ("pack_soa", "rasterize_fwd", "rasterize_bwd",
                                         "pack_rows", "segsum", "rasterize_fwd_q",
-                                        "rasterize_bwd_q", "partition")}
+                                        "rasterize_bwd_q", "partition", "project_sh_fwd",
+                                        "project_sh_bwd")}
 
 
 def reset_launches():
@@ -2542,6 +2558,240 @@ def parent_alone(parent_root, reps=7):
     log(f"[parent] {json.dumps(report)}")
 
 
+# Phase 13, the projection + SH kernel pair at the benchmark cells' shapes:
+# (cell, slots, width, height, whether the cell runs the backward). The
+# buffers hold 1.5 x the alive gaussians (1M at 1080p, 3.11M at 1297x840);
+# the last third of each is dead slots at NEG_INF_LOGIT.
+PROJ_SH_CELLS = (("train-video1080p-1m", 1_500_000, 1920, 1080, True),
+                 ("train-mipnerf360-3m-b1", 4_665_000, 1297, 840, True),
+                 ("render-video1080p-1m", 1_500_000, 1920, 1080, False))
+# Every other instance of the pair the port launches, forward and backward
+# at the first cell's shapes: SH degree 0-3 over the K = 16 buffer (the
+# trainer raises the degree from 0), in the classic and the antialiased
+# mode. The cells' own instance is degree 3, classic.
+PROJ_SH_SWEEP = tuple((d, m) for m in ("classic", "antialiased") for d in range(4)
+                      if (d, m) != (3, "classic"))
+# Its gates against the plain version on the card: each float output within
+# 1e-5 of its largest magnitude; radii equal but for 1 slot in 1e5, and
+# those by one pixel; each gradient leaf within 1e-4 of its largest
+# magnitude.
+PROJ_SH_OUT_RTOL, PROJ_SH_RADII_FRAC, PROJ_SH_GRAD_ATOL_FRAC = 1e-5, 1e-5, 1e-4
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _project_sh_inputs(dev, n, w, h):
+    """A seeded ``scene_3d`` buffer of ``n`` slots, a third dead, with SH
+    rows of 16 bases, and the first view's camera at ``w`` x ``h``."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import NEG_INF_LOGIT
+
+    sc = scene_3d(n, seed=13)
+    logit = sc["logit_opacities"][:, 0].copy()
+    logit[n * 2 // 3:] = NEG_INF_LOGIT
+    sh = np.concatenate([sc["features_dc"], sc["features_rest"]], axis=1)
+    ins = [torch.as_tensor(a, device=dev)
+           for a in (sc["means"], sc["quats"], sc["log_scales"], logit, sh)]
+    view = (look_at(view_eyes()[0], (0.0, 0.0, 0.0), device=dev),
+            make_intrinsics(w, h, device=dev), w, h)
+    return ins, view
+
+
+def _project_sh_case(dev, tag, ins, view, sh_degree, mode, with_bwd):
+    """The pair against its plain version on ``ins`` at one SH degree and
+    mode: the forward's outputs and radii, and with ``with_bwd`` the
+    backward's gradients under seeded cotangents on the visible slots (zero
+    elsewhere, as the raster backward hands them; the depth's zero, as the
+    photometric loss gives it) against ``project_shade_bwd_plain`` and
+    beside autograd through the plain code. Logs the errors and fails on a
+    miss of any gate. Returns the report and the closures the timings run."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.project_sh import (
+        project_shade, project_shade_bwd_plain, project_shade_plain)
+
+    outs = ("means2d", "depths", "conics", "compensations", "colors", "opacities")
+    leaves_names = ("means", "quats", "log_scales", "logit_opacities", "sh_coeffs")
+    n = ins[0].shape[0]
+    args = (*view, sh_degree, mode)
+
+    def fwd():
+        with torch.no_grad():
+            return project_shade(*ins, *args)
+
+    def fwd_plain():
+        with torch.no_grad():
+            return project_shade_plain(*ins, *args)
+
+    def flat(out):
+        proj, colors, opac = out
+        return (proj.means2d, proj.depths, proj.conics, proj.compensations, colors, opac)
+
+    k_out, p_out = fwd(), fwd_plain()
+    dr = (k_out[0].radii - p_out[0].radii).abs()
+    r = {"slots": n, "size": list(view[2:]), "sh_degree": sh_degree, "mode": mode,
+         "visible": int((p_out[0].radii > 0).sum()),
+         "radii_differ": int((dr > 0).sum()), "radii_max_diff": int(dr.max()),
+         "out_rel_err": {k: _rel_err(a, b) for k, a, b in zip(outs, flat(k_out), flat(p_out))},
+         "out_unequal": {k: int((a != b).sum()) for k, a, b in zip(outs, flat(k_out),
+                                                                  flat(p_out))}}
+    log(f"[project_sh] {tag}: {n} slots at {view[2]}x{view[3]}, SH {sh_degree}, {mode}, "
+        f"{r['visible']} visible; forward against the plain version: largest error / largest "
+        f"magnitude {r['out_rel_err']}, elements unequal {r['out_unequal']}, radii differing "
+        f"{r['radii_differ']} (by at most {r['radii_max_diff']} px)")
+    live = p_out[0].radii > 0
+    del k_out, p_out, dr
+    fns = {"fwd": fwd, "fwd_plain": fwd_plain, "live": live}
+    if with_bwd:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+
+        def cot(*shape):
+            g = torch.randn((n, *shape), device=dev, generator=gen)
+            return g * live.view(n, *([1] * len(shape)))
+
+        cots = [cot(2), torch.zeros(n, device=dev), cot(3), cot(3), cot()]
+
+        def grads(project):
+            leaves = [x.detach().requires_grad_(True) for x in ins]
+            proj, colors, opac = project(*leaves, *args)
+            return torch.autograd.grad(
+                [proj.means2d, proj.depths, proj.conics, colors, opac], leaves, cots)
+
+        def fwd_bwd():
+            return grads(project_shade)
+
+        def parent():
+            return grads(project_shade_plain)
+
+        def bwd_plain():
+            g_m2, g_z, g_con, g_col, g_op = cots
+            return project_shade_bwd_plain(*ins, *args, g_m2, g_z, g_con, None, g_col, g_op)
+
+        kg, pg = fwd_bwd(), bwd_plain()
+        r["grad_err"] = {k: _rel_err(a, b) for k, a, b in zip(leaves_names, kg, pg)}
+        del kg
+        r["plain_vs_autograd"] = {k: _rel_err(a, b)
+                                  for k, a, b in zip(leaves_names, pg, parent())}
+        del pg
+        log(f"[project_sh] {tag}: backward against the plain version, largest error / "
+            f"largest magnitude {r['grad_err']}; the plain version against autograd "
+            f"through the plain code {r['plain_vs_autograd']}")
+        fns.update(fwd_bwd=fwd_bwd, parent=parent, bwd_plain=bwd_plain)
+    missed = []
+    if max(r["out_rel_err"].values()) > PROJ_SH_OUT_RTOL:
+        missed.append("a forward output is off its plain version")
+    if r["radii_differ"] > PROJ_SH_RADII_FRAC * n or r["radii_max_diff"] > 1:
+        missed.append("radii differ from the plain version's")
+    if with_bwd and max(r["grad_err"].values()) > PROJ_SH_GRAD_ATOL_FRAC:
+        missed.append("a gradient is off its plain version")
+    r["missed"] = missed
+    return r, fns
+
+
+def project_sh_phase(dev):
+    """Phase 13: the projection + SH kernel pair of ``ops/project_sh.py``
+    against its plain version (``_project_sh_case``): at each cell's shapes
+    (``PROJ_SH_CELLS``, SH 3, classic, one view) with the times of the pair
+    (CUDA events), of each kernel alone (profiler), of the plain version and
+    of the parent's path (autograd through the plain code), the byte bound,
+    and the peak memory of a forward + backward; then every other SH degree
+    and mode the port launches (``PROJ_SH_SWEEP``) at the first cell's
+    shapes. Fails after the last case if any missed a gate."""
+    import torch
+
+    rep, missed = {}, []
+    for cell, n, w, h, with_bwd in PROJ_SH_CELLS:
+        ins, view = _project_sh_inputs(dev, n, w, h)
+        r, fns = _project_sh_case(dev, cell, ins, view, 3, "classic", with_bwd)
+        missed += [f"{cell}: {m}" for m in r["missed"]]
+        # Forward: reads 44 B of parameters and 192 B of SH a slot, writes
+        # means2d, depth, conic, radius, compensation, colour and opacity.
+        fwd_bytes = n * (44 + 192 + 48)
+        r.update(fwd_ms=cuda_ms(fns["fwd"]),
+                 fwd_kernel_ms=kernel_ms(fns["fwd"], "project_sh_fwd_kernel"),
+                 fwd_plain_ms=cuda_ms(fns["fwd_plain"], reps=3),
+                 fwd_bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3)
+        if with_bwd:
+            # Backward: reads the 40 B of cotangents of every slot, the 44 B
+            # of parameters of a slot with any cotangent and the 192 B SH row
+            # of one with a colour cotangent; writes 236 B of gradients.
+            n_any = int(fns["live"].sum())
+            bwd_bytes = n * (40 + 236) + n_any * (44 + 192)
+            r.update(fwd_bwd_ms=cuda_ms(fns["fwd_bwd"]),
+                     bwd_kernel_ms=kernel_ms(fns["fwd_bwd"], "project_sh_bwd_kernel"),
+                     bwd_plain_ms=cuda_ms(fns["bwd_plain"], reps=3),
+                     parent_fwd_bwd_ms=cuda_ms(fns["parent"], reps=3),
+                     bwd_bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3,
+                     peak_gib=peak_gib(fns["fwd_bwd"]), parent_peak_gib=peak_gib(fns["parent"]))
+        times = {k: v for k, v in r.items() if "ms" in k or "peak" in k}
+        log(f"[project_sh] {cell}: {json.dumps(times)}")
+        rep[cell] = r
+        del fns
+        if cell == PROJ_SH_CELLS[0][0]:
+            rep["sweep"] = {}
+            for d, mode in PROJ_SH_SWEEP:
+                tag = f"{cell} SH {d} {mode}"
+                sr, _ = _project_sh_case(dev, tag, ins, view, d, mode, True)
+                missed += [f"{tag}: {m}" for m in sr["missed"]]
+                rep["sweep"][f"sh{d}.{mode}"] = sr
+        del ins, view
+        torch.cuda.empty_cache()
+    if missed:
+        fail(f"[project_sh] the pair missed its gates: {missed}")
+    return rep
+
+
+def project_sh_launches(render_launches, train_launches, n_renders, n_views):
+    """The pair's launches through ``render_single`` (the forward once a
+    frame, never the backward) and the training step (both once a view),
+    and no view taking the autograd path."""
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    got = {"render": [render_launches["project_sh_fwd"], render_launches["project_sh_bwd"]],
+           "train": [train_launches["project_sh_fwd"], train_launches["project_sh_bwd"]],
+           "autograd_path": profiling.counters().get("project_sh.autograd", 0)}
+    log(f"[project_sh] launches (forward, backward): {n_renders} renders {got['render']}, "
+        f"{n_views} training views {got['train']}; views on the autograd path "
+        f"{got['autograd_path']}")
+    if (got["render"] != [n_renders, 0] or got["train"] != [n_views, n_views]
+            or got["autograd_path"]):
+        fail(f"[project_sh] the render or training path did not run the kernel pair: {got}")
+    return got
+
+
+def project_sh_alone():
+    """Phase 13 alone, with the render and training phases it counts the
+    pair's launches in: ``python -c "import chip_smoke;
+    chip_smoke.project_sh_alone()"`` from the repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    for line in _build.build_log("project_sh").splitlines():
+        if "Compiling entry function" in line or "Used" in line or "spill" in line:
+            log(f"[build] project_sh: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rep = {"project_sh": project_sh_phase(dev)}
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    _, images, render_launches = render_phase(dev, state_from_numpy(scene, device=dev), views)
+    launches = train_phase(dev, scene, views, images)[4]
+    rep["launches"] = project_sh_launches(render_launches, launches, len(views),
+                                          TRAIN_STEPS * len(views))
+    print(json.dumps(rep), flush=True)
+
+
 def _cli_call(main, argv, records):
     """``main(argv)`` of a CLI with its standard output kept off this
     script's (the eval CLI prints a JSON summary line); returns the exit
@@ -3334,6 +3584,9 @@ def run(dev):
     K = make_intrinsics(WIDTH, HEIGHT, device=dev)
     views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
              for e in view_eyes()]
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    profiling.reset_counters("project_sh.autograd")
     raster, images, render_launches = render_phase(dev, state, views)
     # Both render-path kernels against their plain versions on the render
     # path's own view 0.
@@ -3348,6 +3601,8 @@ def run(dev):
     del proj, colors, opac, rargs
     torch.cuda.empty_cache()
     step, tstate, batch, step_ms, launches = train_phase(dev, scene, views, images)
+    psh_launches = project_sh_launches(render_launches, launches, len(views),
+                                       TRAIN_STEPS * images.shape[0])
 
     # 6. Timings at the main paths' shapes, CUDA events, medians.
     render_ms = [cuda_ms(lambda vp=vp: raster.render_single(state.params, vp),
@@ -3705,6 +3960,8 @@ def run(dev):
     # 12. The settings the port used to refuse, beside the old ones.
     wide = wide_settings_phase(dev, state, scene, views, images, sargs, b, fwd_out, bw)
     torch.cuda.empty_cache()
+    # 13. The projection + SH kernel pair at the cells' shapes.
+    psh = project_sh_phase(dev)
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
@@ -3752,7 +4009,7 @@ def run(dev):
         return {"bound_ms": max(bytes_ms, needed_ops_ms), "bound_by": by(bytes_ms, needed_ops_ms),
                 "bound_unculled_ms": max(bytes_ms, unculled_ops_ms)}
 
-    return {"kernels": [
+    return {"project_sh": dict(psh, launches=psh_launches), "kernels": [
         row("pack_soa", "pack_soa.cu", "gaussian_splatting_tpu/ops/tiling.py:335",
             pack_err, pack_ms, pack_plain_ms, pack_bound, "bytes", pack_lib_ms),
         row("rasterize_fwd", "rasterize_fwd.cu",

@@ -31,6 +31,37 @@ def num_sh_bases(degree: int) -> int:
     return (degree + 1) ** 2
 
 
+def sh_bases(degree: int, dirs: torch.Tensor) -> list:
+    """The real SH bases up to ``degree`` at unit directions ``dirs`` (..., 3),
+    in the order of the coefficient rows: basis 0 is the constant ``SH_C0``,
+    the others (..., 1) tensors."""
+    bases = [SH_C0]
+    if degree >= 1:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        bases += [-SH_C1 * y, SH_C1 * z, -SH_C1 * x]
+        if degree >= 2:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            bases += [
+                SH_C2[0] * xy,
+                SH_C2[1] * yz,
+                SH_C2[2] * (2.0 * zz - xx - yy),
+                SH_C2[3] * xz,
+                SH_C2[4] * (xx - yy),
+            ]
+            if degree >= 3:
+                bases += [
+                    SH_C3[0] * y * (3.0 * xx - yy),
+                    SH_C3[1] * xy * z,
+                    SH_C3[2] * y * (4.0 * zz - xx - yy),
+                    SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+                    SH_C3[4] * x * (4.0 * zz - xx - yy),
+                    SH_C3[5] * z * (xx - yy),
+                    SH_C3[6] * x * (xx - 3.0 * yy),
+                ]
+    return bases
+
+
 def eval_sh(degree: int, coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate SH at unit directions.
 
@@ -39,37 +70,10 @@ def eval_sh(degree: int, coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.Tens
     dirs:   (..., 3) unit vectors (world-frame view directions).
     Returns (..., 3) raw SH colors (no +0.5 shift).
     """
-    result = SH_C0 * coeffs[..., 0, :]
-    if degree >= 1:
-        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
-        result = (
-            result
-            - SH_C1 * y * coeffs[..., 1, :]
-            + SH_C1 * z * coeffs[..., 2, :]
-            - SH_C1 * x * coeffs[..., 3, :]
-        )
-        if degree >= 2:
-            xx, yy, zz = x * x, y * y, z * z
-            xy, yz, xz = x * y, y * z, x * z
-            result = (
-                result
-                + SH_C2[0] * xy * coeffs[..., 4, :]
-                + SH_C2[1] * yz * coeffs[..., 5, :]
-                + SH_C2[2] * (2.0 * zz - xx - yy) * coeffs[..., 6, :]
-                + SH_C2[3] * xz * coeffs[..., 7, :]
-                + SH_C2[4] * (xx - yy) * coeffs[..., 8, :]
-            )
-            if degree >= 3:
-                result = (
-                    result
-                    + SH_C3[0] * y * (3.0 * xx - yy) * coeffs[..., 9, :]
-                    + SH_C3[1] * xy * z * coeffs[..., 10, :]
-                    + SH_C3[2] * y * (4.0 * zz - xx - yy) * coeffs[..., 11, :]
-                    + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * coeffs[..., 12, :]
-                    + SH_C3[4] * x * (4.0 * zz - xx - yy) * coeffs[..., 13, :]
-                    + SH_C3[5] * z * (xx - yy) * coeffs[..., 14, :]
-                    + SH_C3[6] * x * (xx - 3.0 * yy) * coeffs[..., 15, :]
-                )
+    bases = sh_bases(degree, dirs)
+    result = bases[0] * coeffs[..., 0, :]
+    for k in range(1, len(bases)):
+        result = result + bases[k] * coeffs[..., k, :]
     return result
 
 

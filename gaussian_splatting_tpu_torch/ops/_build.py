@@ -27,6 +27,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
+# Flags one source adds to NVCC_FLAGS. project_sh's radii decide the binning
+# and must equal those of the plain PyTorch arithmetic, which rounds every
+# product and every sum: no multiply-add contraction there.
+SOURCE_FLAGS = {"project_sh": ("-fmad=false",)}
 
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 # Host C++ for the machine's baseline ISA: a library built here may be loaded
@@ -45,6 +49,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built. The
     name hashes the source, every shared header ``csrc/*.cuh`` and the
@@ -53,7 +61,7 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -68,7 +76,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         if p.exists():
             continue
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
     failed = []

@@ -23,9 +23,7 @@ import numpy as np
 import torch
 
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
-from gaussian_splatting_tpu_torch.core.activations import opacity_activation, scale_activation
-from gaussian_splatting_tpu_torch.core.sh import sh_to_color
-from gaussian_splatting_tpu_torch.ops.projection import project_gaussians
+from gaussian_splatting_tpu_torch.ops.project_sh import project_shade, project_shade_plain
 from gaussian_splatting_tpu_torch.ops.rasterize_ref import rasterize_reference
 from gaussian_splatting_tpu_torch.utils import profiling
 
@@ -141,24 +139,20 @@ def project_and_shade(means, quats, log_scales, logit_opacities, sh_coeffs,
     opacity-aware radii (the pre-compensation opacity bounds the effective
     one, so the shrunken support stays exact), multiplies opacity by the
     compensation factor in antialiased mode and evaluates SH along the view
-    directions from the camera center. Spans ``render.project_sh`` and, for
-    its backward, ``render.project_sh.bwd``."""
+    directions from the camera center. Runs ``ops/project_sh.py``'s
+    Function (the CUDA kernel pair, or its plain version on the CPU); where
+    the view itself needs a gradient (pose refinement) it runs the plain
+    code under autograd instead and counts ``project_sh.autograd``. Spans
+    ``render.project_sh`` and, for its backward, ``render.project_sh.bwd``."""
     with profiling.annotate("render.project_sh"):
         mark = profiling.grad_span("render.project_sh.bwd")
-        scales = scale_activation(mark.input(log_scales))
-        opac = opacity_activation(logit_opacities.reshape(-1))
-        proj = project_gaussians(means, quats, scales, viewmat, K, width, height,
-                                 opacities=opac)
-        if rasterize_mode == "antialiased":
-            opac = opac * proj.compensations
-        elif rasterize_mode != "classic":
-            raise ValueError(f"unknown rasterize_mode {rasterize_mode!r}")
-        R = viewmat[:3, :3]
-        t = viewmat[:3, 3]
-        cam_pos = -R.T @ t
-        dirs = means - cam_pos[None, :]
-        dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-12)
-        colors = sh_to_color(sh_degree, sh_coeffs, dirs)
+        args = (means, quats, mark.input(log_scales), logit_opacities.reshape(-1), sh_coeffs,
+                viewmat, K, width, height, sh_degree, rasterize_mode)
+        if torch.is_grad_enabled() and (viewmat.requires_grad or K.requires_grad):
+            profiling.count("project_sh.autograd")
+            proj, colors, opac = project_shade_plain(*args)
+        else:
+            proj, colors, opac = project_shade(*args)
         means2d, depths, conics, comps, colors, opac = mark.outputs(
             proj.means2d, proj.depths, proj.conics, proj.compensations, colors, opac)
         proj = proj._replace(means2d=means2d, depths=depths, conics=conics,
