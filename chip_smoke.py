@@ -189,8 +189,16 @@ Phases (any failure exits nonzero and prints no result):
    forward and backward at the first cell's shapes under the same gates;
    and through phases 4 and 5, the forward launched once a render and the
    pair once a training view, no view on the autograd path.
+14. Deformable 3D Gaussians (``deform_phase``, after phase 13; alone:
+   ``deform_alone``): the pair's deforming instance at the 1080p trainer
+   cell's shapes under seeded offsets, against its plain version under
+   phase 13's gates with no radius differing, timed beside the static
+   instance; the deformation MLP (8 x 256) over 1M rows forward and
+   forward + backward, its TFLOP/s, peak memory and the offsets' error with
+   TF32 on.
 
-Output: the kernels JSON line (phase 13's numbers under ``project_sh``;
+Output: the kernels JSON line (phase 13's numbers under ``project_sh``,
+phase 14's under ``project_sh.deform``;
 each row also with ``kernel_ms``, the kernel's profiler time,
 ``trainer_launches``, its launches in phase 8,
 ``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
@@ -2601,14 +2609,16 @@ def _project_sh_inputs(dev, n, w, h):
     return ins, view
 
 
-def _project_sh_case(dev, tag, ins, view, sh_degree, mode, with_bwd):
+def _project_sh_case(dev, tag, ins, view, sh_degree, mode, with_bwd, offsets=None):
     """The pair against its plain version on ``ins`` at one SH degree and
     mode: the forward's outputs and radii, and with ``with_bwd`` the
     backward's gradients under seeded cotangents on the visible slots (zero
     elsewhere, as the raster backward hands them; the depth's zero, as the
     photometric loss gives it) against ``project_shade_bwd_plain`` and
-    beside autograd through the plain code. Logs the errors and fails on a
-    miss of any gate. Returns the report and the closures the timings run."""
+    beside autograd through the plain code. ``offsets`` (dx, dr, ds) run
+    the deforming instance, their gradients among the leaves. Logs the
+    errors and fails on a miss of any gate. Returns the report and the
+    closures the timings run."""
     import torch
 
     from gaussian_splatting_tpu_torch.ops.project_sh import (
@@ -2616,16 +2626,22 @@ def _project_sh_case(dev, tag, ins, view, sh_degree, mode, with_bwd):
 
     outs = ("means2d", "depths", "conics", "compensations", "colors", "opacities")
     leaves_names = ("means", "quats", "log_scales", "logit_opacities", "sh_coeffs")
+    if offsets is not None:
+        leaves_names += ("dx", "dr", "ds")
+        ins = list(ins) + list(offsets)
     n = ins[0].shape[0]
     args = (*view, sh_degree, mode)
 
+    def call(project, xs):
+        return project(*xs[:5], *args, tuple(xs[5:]) if len(xs) > 5 else None)
+
     def fwd():
         with torch.no_grad():
-            return project_shade(*ins, *args)
+            return call(project_shade, ins)
 
     def fwd_plain():
         with torch.no_grad():
-            return project_shade_plain(*ins, *args)
+            return call(project_shade_plain, ins)
 
     def flat(out):
         proj, colors, opac = out
@@ -2658,7 +2674,7 @@ def _project_sh_case(dev, tag, ins, view, sh_degree, mode, with_bwd):
 
         def grads(project):
             leaves = [x.detach().requires_grad_(True) for x in ins]
-            proj, colors, opac = project(*leaves, *args)
+            proj, colors, opac = call(project, leaves)
             return torch.autograd.grad(
                 [proj.means2d, proj.depths, proj.conics, colors, opac], leaves, cots)
 
@@ -2670,7 +2686,10 @@ def _project_sh_case(dev, tag, ins, view, sh_degree, mode, with_bwd):
 
         def bwd_plain():
             g_m2, g_z, g_con, g_col, g_op = cots
-            return project_shade_bwd_plain(*ins, *args, g_m2, g_z, g_con, None, g_col, g_op)
+            out = project_shade_bwd_plain(*ins[:5], *args, g_m2, g_z, g_con, None, g_col, g_op,
+                                          offsets=tuple(ins[5:]) if len(ins) > 5 else None)
+            # dx's gradient is the means'.
+            return out if len(out) == 5 else (*out[:5], out[0], *out[5:])
 
         kg, pg = fwd_bwd(), bwd_plain()
         r["grad_err"] = {k: _rel_err(a, b) for k, a, b in zip(leaves_names, kg, pg)}
@@ -2744,6 +2763,98 @@ def project_sh_phase(dev):
     if missed:
         fail(f"[project_sh] the pair missed its gates: {missed}")
     return rep
+
+
+# Phase 14, Deformable 3D Gaussians: the pair's deforming instance at the
+# 1080p trainer cell's shapes under seeded offsets of the deformable cell's
+# size (dx ~1 % of the scene's 2.0 extent, dr and ds small), and the
+# deformation MLP (8 x 256, the published network) over 1M rows.
+DEFORM_ROWS = 1_000_000
+DEFORM_OFFSET_SD = (0.02, 0.05, 0.0005)
+
+
+def deform_phase(dev):
+    """Phase 14: the deforming instance of the pair against its plain
+    version (``_project_sh_case`` with offsets, under phase 13's gates and
+    radii differing on no slot), timed beside the static instance on the
+    same slots; then the MLP of ``models/deform.py`` at the published shape
+    over ``DEFORM_ROWS`` rows: forward and forward + backward ms (CUDA
+    events), their float32 TFLOP/s on 2 x 504,320 multiply-adds a row
+    forward and 2 x (504,320 + 482,816) backward, the peak memory, and the
+    offsets' largest difference with TF32 on over their RMS."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models import deform as D
+
+    cell, n, w, h, _ = PROJ_SH_CELLS[0]
+    ins, view = _project_sh_inputs(dev, n, w, h)
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    offs = [sd * torch.randn((n, k), device=dev, generator=g)
+            for sd, k in zip(DEFORM_OFFSET_SD, (3, 4, 3))]
+    rep = {}
+    r, fns = _project_sh_case(dev, f"{cell} deforming", ins, view, 3, "classic", True, offs)
+    missed = list(r["missed"])
+    if r["radii_differ"]:
+        missed.append("radii differ from the plain version's")
+    r.update(fwd_ms=cuda_ms(fns["fwd"]), fwd_bwd_ms=cuda_ms(fns["fwd_bwd"]),
+             fwd_kernel_ms=kernel_ms(fns["fwd"], "project_sh_fwd_kernel"),
+             bwd_kernel_ms=kernel_ms(fns["fwd_bwd"], "project_sh_bwd_kernel"))
+    _, sfns = _project_sh_case(dev, f"{cell} static", ins, view, 3, "classic", True)
+    r.update(static_fwd_ms=cuda_ms(sfns["fwd"]), static_fwd_bwd_ms=cuda_ms(sfns["fwd_bwd"]))
+    rep["pair"] = r
+    del fns, sfns, ins, offs
+    torch.cuda.empty_cache()
+
+    spec = D.DeformSpec()
+    params = D.init_params(spec, seed=14, device=dev)
+    x = (torch.rand((DEFORM_ROWS, 3), device=dev, generator=g) * 4.0 - 2.0)
+    t = torch.tensor(0.5, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return D.mlp(params, spec, x, t)
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    cots = [torch.randn((DEFORM_ROWS, k), device=dev, generator=g) for k in (3, 4, 3)]
+
+    def fwd_bwd():
+        return torch.autograd.grad(D.mlp(leaves, spec, x, t), list(leaves.values()), cots)
+
+    macs = spec.macs_per_row()
+    in_macs = macs - spec.in_ch * spec.width
+    m = {"rows": DEFORM_ROWS, "macs_per_row": macs, "fwd_ms": cuda_ms(fwd, reps=5),
+         "fwd_bwd_ms": cuda_ms(fwd_bwd, reps=5), "peak_gib": peak_gib(fwd_bwd)}
+    m["fwd_tflops"] = 2 * macs * DEFORM_ROWS / m["fwd_ms"] / 1e9
+    m["fwd_bwd_tflops"] = 2 * (2 * macs + in_macs) * DEFORM_ROWS / m["fwd_bwd_ms"] / 1e9
+    ref = [o.clone() for o in fwd()]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf = fwd()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    m["tf32_rel_err"] = max(float((a - b).abs().max() / b.pow(2).mean().sqrt())
+                            for a, b in zip(tf, ref))
+    log(f"[deform] MLP {spec} over {DEFORM_ROWS} rows: {json.dumps(m)}")
+    rep["mlp"] = m
+    if missed:
+        fail(f"[deform] the deforming pair missed its gates: {missed}")
+    return rep
+
+
+def deform_alone():
+    """Phase 14 alone: ``python -c "import chip_smoke; chip_smoke.deform_alone()"``
+    from the repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    for line in _build.build_log("project_sh").splitlines():
+        if "Compiling entry function" in line or "Used" in line or "spill" in line:
+            log(f"[build] project_sh: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"deform": deform_phase(torch.device("cuda"))}), flush=True)
 
 
 def project_sh_launches(render_launches, train_launches, n_renders, n_views):
@@ -3962,6 +4073,8 @@ def run(dev):
     torch.cuda.empty_cache()
     # 13. The projection + SH kernel pair at the cells' shapes.
     psh = project_sh_phase(dev)
+    # 14. Its deforming instance and the deformation MLP.
+    psh["deform"] = deform_phase(dev)
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)

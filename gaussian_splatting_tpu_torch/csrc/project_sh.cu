@@ -30,6 +30,13 @@
 // with coalesced 16-byte loads, rows padded to an odd stride so that each
 // thread's row reads are free of bank conflicts, and the SH gradient rows go
 // back out the same way, zeros beyond the active degree included.
+//
+// Offsets (Deformable 3D Gaussians, models/deform.py): optional (N, 3) dx,
+// (N, 4) dr and (N, 3) ds added after the activations, mean + dx, exp(log s)
+// + ds and normalize(q) + dr (the rotation normalizes that sum again). A
+// template flag kDef takes them: the static instances (no offsets) are the
+// code they were. The backward writes the gradients of dr and ds too; the
+// gradient of dx is the mean's, which it writes once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -185,13 +192,15 @@ struct Cov3 {
   float qn;     // |q| before normalizing
   float qinv;   // 1 / max(|q|, 1e-12)
   float r[9];   // rotation, row-major
+  float sc[3];  // activated scales
   float v[3];   // squared scales
   float s[6];   // Sigma3: s00 s01 s02 s11 s12 s22
 };
 
-__device__ __forceinline__ void cov3(const float* __restrict__ quat, const float* __restrict__ ls,
-                                     Cov3& g) {
-  float w = __ldg(quat), x = __ldg(quat + 1), y = __ldg(quat + 2), z = __ldg(quat + 3);
+// The 3D covariance from a raw quaternion (w, x, y, z), normalized here, and
+// activated scales sc.
+__device__ __forceinline__ void cov3_core(float w, float x, float y, float z, const float* sc,
+                                          Cov3& g) {
   g.qn = sqrtf(w * w + x * x + y * y + z * z);
   g.qinv = 1.0f / fmaxf(g.qn, 1e-12f);
   w = w * g.qinv;
@@ -216,8 +225,8 @@ __device__ __forceinline__ void cov3(const float* __restrict__ quat, const float
   r[7] = 2.0f * (yz + wx);
   r[8] = 1.0f - 2.0f * (xx + yy);
   for (int k = 0; k < 3; ++k) {
-    const float sc = expf(__ldg(ls + k));
-    g.v[k] = sc * sc;
+    g.sc[k] = sc[k];
+    g.v[k] = sc[k] * sc[k];
   }
   const float* v = g.v;
   g.s[0] = r[0] * r[0] * v[0] + r[1] * r[1] * v[1] + r[2] * r[2] * v[2];
@@ -226,6 +235,36 @@ __device__ __forceinline__ void cov3(const float* __restrict__ quat, const float
   g.s[3] = r[3] * r[3] * v[0] + r[4] * r[4] * v[1] + r[5] * r[5] * v[2];
   g.s[4] = r[3] * r[6] * v[0] + r[4] * r[7] * v[1] + r[5] * r[8] * v[2];
   g.s[5] = r[6] * r[6] * v[0] + r[7] * r[7] * v[1] + r[8] * r[8] * v[2];
+}
+
+// What the offsets' backward needs of the first normalization q1 =
+// normalize(q): q1 and 1 / max(|q|, 1e-12), and whether |q| passed the clamp.
+struct Quat1 {
+  float q[4];
+  float qinv;
+  bool unclamped;
+};
+
+// A slot's covariance: with kDef, from normalize(q) + dr and exp(log s) + ds
+// (q1 kept for the backward); without, from q and exp(log s).
+template <bool kDef>
+__device__ __forceinline__ void cov3(const float* __restrict__ quat, const float* __restrict__ ls,
+                                     const float* __restrict__ dr, const float* __restrict__ ds,
+                                     Cov3& g, Quat1& q1) {
+  float q[4] = {__ldg(quat), __ldg(quat + 1), __ldg(quat + 2), __ldg(quat + 3)};
+  float sc[3];
+  for (int k = 0; k < 3; ++k) sc[k] = expf(__ldg(ls + k));
+  if constexpr (kDef) {
+    const float n1 = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+    q1.qinv = 1.0f / fmaxf(n1, 1e-12f);
+    q1.unclamped = n1 >= 1e-12f;
+    for (int k = 0; k < 4; ++k) {
+      q1.q[k] = q[k] * q1.qinv;
+      q[k] = q1.q[k] + __ldg(dr + k);
+    }
+    for (int k = 0; k < 3; ++k) sc[k] = sc[k] + __ldg(ds + k);
+  }
+  cov3_core(q[0], q[1], q[2], q[3], sc, g);
 }
 
 // cov_cam = W Sigma3 W^T as B = Sigma3 W^T, then W B (upper triangle c00 c01
@@ -261,13 +300,15 @@ __device__ __forceinline__ void view_dir(const Cam& cam, const float* m, float* 
   dn[2] = d2 / nc;
 }
 
-template <int D, bool kAA>
+template <int D, bool kAA, bool kDef>
 __global__ void __launch_bounds__(kThreads)
 project_sh_fwd_kernel(int n, int k3, bool vec, float width, float height,
                       const float* __restrict__ means, const float* __restrict__ quats,
                       const float* __restrict__ log_scales, const float* __restrict__ logits,
                       const float* __restrict__ sh, const float* __restrict__ view,
-                      const float* __restrict__ Kmat, float2* __restrict__ means2d,
+                      const float* __restrict__ Kmat, const float* __restrict__ dx,
+                      const float* __restrict__ dr, const float* __restrict__ ds,
+                      float2* __restrict__ means2d,
                       float* __restrict__ depths, float* __restrict__ conics,
                       int* __restrict__ radii, float* __restrict__ comps,
                       float* __restrict__ colors, float* __restrict__ opac) {
@@ -284,13 +325,16 @@ project_sh_fwd_kernel(int n, int k3, bool vec, float width, float height,
 
   float m[3];
   for (int k = 0; k < 3; ++k) m[k] = __ldg(means + 3 * i + k);
+  if constexpr (kDef)
+    for (int k = 0; k < 3; ++k) m[k] = m[k] + __ldg(dx + 3 * i + k);
   const float* W = cam.r;
   const float x = W[0] * m[0] + W[1] * m[1] + W[2] * m[2] + cam.t[0];
   const float y = W[3] * m[0] + W[4] * m[1] + W[5] * m[2] + cam.t[1];
   const float z = W[6] * m[0] + W[7] * m[1] + W[8] * m[2] + cam.t[2];
   const float zs = fabsf(z) < 1e-6f ? 1e-6f : z;
   Cov3 g;
-  cov3(quats + 4 * i, log_scales + 3 * i, g);
+  Quat1 q1;
+  cov3<kDef>(quats + 4 * i, log_scales + 3 * i, dr + 4 * i, ds + 3 * i, g, q1);
   float c[6];
   cov_cam(W, g.s, c);
   const float tx = zs * fminf(fmaxf(x / zs, -cam.lim_x), cam.lim_x);
@@ -345,18 +389,21 @@ project_sh_fwd_kernel(int n, int k3, bool vec, float width, float height,
   for (int ch = 0; ch < 3; ++ch) colors[3 * i + ch] = fmaxf(col[ch], 0.0f);
 }
 
-template <int D, bool kAA>
+template <int D, bool kAA, bool kDef>
 __global__ void __launch_bounds__(kThreads)
 project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, float height,
                       const float* __restrict__ means, const float* __restrict__ quats,
                       const float* __restrict__ log_scales, const float* __restrict__ logits,
                       const float* __restrict__ sh, const float* __restrict__ view,
-                      const float* __restrict__ Kmat, const float* __restrict__ g_means2d,
+                      const float* __restrict__ Kmat, const float* __restrict__ dx,
+                      const float* __restrict__ dr, const float* __restrict__ ds,
+                      const float* __restrict__ g_means2d,
                       const float* __restrict__ g_depths, const float* __restrict__ g_conics,
                       const float* __restrict__ g_comps, const float* __restrict__ g_colors,
                       const float* __restrict__ g_opac, float* __restrict__ d_means,
                       float* __restrict__ d_quats, float* __restrict__ d_log_scales,
-                      float* __restrict__ d_logits, float* __restrict__ d_sh) {
+                      float* __restrict__ d_logits, float* __restrict__ d_sh,
+                      float* __restrict__ d_dr, float* __restrict__ d_ds) {
   constexpr int kNb = (D + 1) * (D + 1), kRow = 3 * kNb, kStride = kRow | 1;
   __shared__ float rows_s[kThreads * kStride];
   __shared__ Cam cam;
@@ -381,6 +428,8 @@ project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, flo
   float m[3] = {0.f, 0.f, 0.f}, gd[3] = {0.f, 0.f, 0.f};
   if (here) {
     for (int k = 0; k < 3; ++k) m[k] = __ldg(means + 3 * i + k);
+    if constexpr (kDef)
+      for (int k = 0; k < 3; ++k) m[k] = m[k] + __ldg(dx + 3 * i + k);
     float* row = rows_s + threadIdx.x * kStride;
     if (need) {
       float dn[3], nd;
@@ -437,6 +486,10 @@ project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, flo
     }
     for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = 0.f;
     d_logits[i] = 0.f;
+    if constexpr (kDef) {
+      for (int k = 0; k < 3; ++k) d_ds[3 * i + k] = 0.f;
+      for (int k = 0; k < 4; ++k) d_dr[4 * i + k] = 0.f;
+    }
     return;
   }
 
@@ -448,7 +501,8 @@ project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, flo
   const bool z_small = fabsf(z) < 1e-6f;
   const float zs = z_small ? 1e-6f : z;
   Cov3 g;
-  cov3(quats + 4 * i, log_scales + 3 * i, g);
+  Quat1 q1;
+  cov3<kDef>(quats + 4 * i, log_scales + 3 * i, dr + 4 * i, ds + 3 * i, g, q1);
   float c[6];
   cov_cam(W, g.s, c);
   const float ux_raw = x / zs, uy_raw = y / zs;
@@ -528,7 +582,14 @@ project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, flo
       gv += r[3 * i_ + k] * hr;
       gr[3 * i_ + k] = 2.0f * hr * g.v[k];
     }
-    d_log_scales[3 * i + k] = 2.0f * g.v[k] * gv;
+    if constexpr (kDef) {
+      // s' = exp(log s) + ds, v = s'^2.
+      const float gs = 2.0f * g.sc[k] * gv;
+      d_ds[3 * i + k] = gs;
+      d_log_scales[3 * i + k] = gs * expf(__ldg(log_scales + 3 * i + k));
+    } else {
+      d_log_scales[3 * i + k] = 2.0f * g.v[k] * gv;
+    }
   }
 
   // The rotation of the unit quaternion, then its normalization.
@@ -543,7 +604,20 @@ project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, flo
                   qy * gr[5] + qx * gr[6] + qy * gr[7]);
   const float along = g.qn >= 1e-12f
                           ? gq[0] * qw + gq[1] * qx + gq[2] * qy + gq[3] * qz : 0.f;
-  for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = (gq[k] - along * g.q[k]) * g.qinv;
+  if constexpr (kDef) {
+    // The rotation's input is q2 = q1 + dr: its gradient is dr's; q1 =
+    // normalize(q) passes it on without its part along q1.
+    float g2[4];
+    for (int k = 0; k < 4; ++k) {
+      g2[k] = (gq[k] - along * g.q[k]) * g.qinv;
+      d_dr[4 * i + k] = g2[k];
+    }
+    const float along1 = q1.unclamped ? g2[0] * q1.q[0] + g2[1] * q1.q[1] + g2[2] * q1.q[2] +
+                                            g2[3] * q1.q[3] : 0.f;
+    for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = (g2[k] - along1 * q1.q[k]) * q1.qinv;
+  } else {
+    for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = (gq[k] - along * g.q[k]) * g.qinv;
+  }
 
   // J and the means2d through tx, ty, 1/zs to the camera-frame mean.
   const float g_rz = g_j00 * fx + g_j11 * fy + gmx * fx * x + gmy * fy * y -
@@ -560,52 +634,53 @@ project_sh_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, flo
     d_means[3 * i + k] = W[k] * gpx + W[3 + k] * gpy + W[6 + k] * gpz + gd[k];
 }
 
-template <int D, bool kAA>
+template <int D, bool kAA, bool kDef>
 int launch_fwd(int n, int k3, float width, float height, const float* const* in, void* const* out,
                cudaStream_t stream) {
   constexpr int kRow = 3 * (D + 1) * (D + 1);
   const bool vec = kRow % 4 == 0 && k3 % 4 == 0 && (uintptr_t)in[4] % 16 == 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  project_sh_fwd_kernel<D, kAA><<<blocks, kThreads, 0, stream>>>(
-      n, k3, vec, width, height, in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-      (float2*)out[0], (float*)out[1], (float*)out[2], (int*)out[3], (float*)out[4],
+  project_sh_fwd_kernel<D, kAA, kDef><<<blocks, kThreads, 0, stream>>>(
+      n, k3, vec, width, height, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
+      in[9], (float2*)out[0], (float*)out[1], (float*)out[2], (int*)out[3], (float*)out[4],
       (float*)out[5], (float*)out[6]);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kAA>
+template <int D, bool kAA, bool kDef>
 int launch_bwd(int n, int k3, float width, float height, const float* const* in,
                const float* const* gin, float* const* out, cudaStream_t stream) {
   constexpr int kRow = 3 * (D + 1) * (D + 1);
   const bool vec_in = kRow % 4 == 0 && k3 % 4 == 0 && (uintptr_t)in[4] % 16 == 0;
   const bool vec_out = k3 % 4 == 0 && (uintptr_t)out[4] % 16 == 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  project_sh_bwd_kernel<D, kAA><<<blocks, kThreads, 0, stream>>>(
+  project_sh_bwd_kernel<D, kAA, kDef><<<blocks, kThreads, 0, stream>>>(
       n, k3, vec_in, vec_out, width, height, in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-      gin[0], gin[1], gin[2], gin[3], gin[4], gin[5], out[0], out[1], out[2], out[3], out[4]);
+      in[7], in[8], in[9], gin[0], gin[1], gin[2], gin[3], gin[4], gin[5], out[0], out[1],
+      out[2], out[3], out[4], out[5], out[6]);
   return (int)cudaGetLastError();
 }
 
-template <bool kAA>
+template <bool kAA, bool kDef>
 int fwd_degree(int degree, int n, int k3, float width, float height, const float* const* in,
                void* const* out, cudaStream_t st) {
   switch (degree) {
-    case 0: return launch_fwd<0, kAA>(n, k3, width, height, in, out, st);
-    case 1: return launch_fwd<1, kAA>(n, k3, width, height, in, out, st);
-    case 2: return launch_fwd<2, kAA>(n, k3, width, height, in, out, st);
-    case 3: return launch_fwd<3, kAA>(n, k3, width, height, in, out, st);
+    case 0: return launch_fwd<0, kAA, kDef>(n, k3, width, height, in, out, st);
+    case 1: return launch_fwd<1, kAA, kDef>(n, k3, width, height, in, out, st);
+    case 2: return launch_fwd<2, kAA, kDef>(n, k3, width, height, in, out, st);
+    case 3: return launch_fwd<3, kAA, kDef>(n, k3, width, height, in, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool kAA>
+template <bool kAA, bool kDef>
 int bwd_degree(int degree, int n, int k3, float width, float height, const float* const* in,
                const float* const* gin, float* const* out, cudaStream_t st) {
   switch (degree) {
-    case 0: return launch_bwd<0, kAA>(n, k3, width, height, in, gin, out, st);
-    case 1: return launch_bwd<1, kAA>(n, k3, width, height, in, gin, out, st);
-    case 2: return launch_bwd<2, kAA>(n, k3, width, height, in, gin, out, st);
-    case 3: return launch_bwd<3, kAA>(n, k3, width, height, in, gin, out, st);
+    case 0: return launch_bwd<0, kAA, kDef>(n, k3, width, height, in, gin, out, st);
+    case 1: return launch_bwd<1, kAA, kDef>(n, k3, width, height, in, gin, out, st);
+    case 2: return launch_bwd<2, kAA, kDef>(n, k3, width, height, in, gin, out, st);
+    case 3: return launch_bwd<3, kAA, kDef>(n, k3, width, height, in, gin, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -613,46 +688,67 @@ int bwd_degree(int degree, int n, int k3, float width, float height, const float
 }  // namespace
 
 // Inputs: means (n, 3), quats (n, 4), log_scales (n, 3), logits (n,), sh (n,
-// kb, 3) float32 contiguous, viewmat (4, 4), K (3, 3); kb >= (degree + 1)^2.
-// Outputs: means2d (n, 2), depths (n,), conics (n, 3), radii (n,) int32,
-// compensations (n,), colors (n, 3), opacities (n,).
+// kb, 3) float32 contiguous, viewmat (4, 4), K (3, 3); kb >= (degree + 1)^2;
+// the offsets dx (n, 3), dr (n, 4), ds (n, 3), all three null (static) or
+// none. Outputs: means2d (n, 2), depths (n,), conics (n, 3), radii (n,)
+// int32, compensations (n,), colors (n, 3), opacities (n,).
 extern "C" int gs_project_sh_fwd(int n, int kb, int degree, int antialiased, float width,
                                  float height, const void* means, const void* quats,
                                  const void* log_scales, const void* logits, const void* sh,
-                                 const void* view, const void* K, void* means2d, void* depths,
+                                 const void* view, const void* K, const void* dx,
+                                 const void* dr, const void* ds, void* means2d, void* depths,
                                  void* conics, void* radii, void* comps, void* colors,
                                  void* opac, void* stream) {
   if (n <= 0 || kb < (degree + 1) * (degree + 1)) return (int)cudaErrorInvalidValue;
-  const float* in[7] = {(const float*)means, (const float*)quats, (const float*)log_scales,
-                        (const float*)logits, (const float*)sh, (const float*)view,
-                        (const float*)K};
+  const bool def = dx != nullptr;
+  if (def != (dr != nullptr) || def != (ds != nullptr)) return (int)cudaErrorInvalidValue;
+  const float* in[10] = {(const float*)means, (const float*)quats, (const float*)log_scales,
+                         (const float*)logits, (const float*)sh, (const float*)view,
+                         (const float*)K, (const float*)dx, (const float*)dr,
+                         (const float*)ds};
   void* out[7] = {means2d, depths, conics, radii, comps, colors, opac};
   cudaStream_t st = (cudaStream_t)stream;
-  return antialiased ? fwd_degree<true>(degree, n, 3 * kb, width, height, in, out, st)
-                     : fwd_degree<false>(degree, n, 3 * kb, width, height, in, out, st);
+  const int k3 = 3 * kb;
+  if (def)
+    return antialiased ? fwd_degree<true, true>(degree, n, k3, width, height, in, out, st)
+                       : fwd_degree<false, true>(degree, n, k3, width, height, in, out, st);
+  return antialiased ? fwd_degree<true, false>(degree, n, k3, width, height, in, out, st)
+                     : fwd_degree<false, false>(degree, n, k3, width, height, in, out, st);
 }
 
 // The forward's inputs; the cotangents of means2d, depths, conics,
 // compensations, colors and opacities (a null pointer is zero); the
-// gradients of means, quats, log_scales, logits and sh, every element written.
+// gradients of means, quats, log_scales, logits and sh and, with the
+// offsets, of dr and ds (dx's is the means'), every element written.
 extern "C" int gs_project_sh_bwd(int n, int kb, int degree, int antialiased, float width,
                                  float height, const void* means, const void* quats,
                                  const void* log_scales, const void* logits, const void* sh,
-                                 const void* view, const void* K, const void* g_means2d,
+                                 const void* view, const void* K, const void* dx,
+                                 const void* dr, const void* ds, const void* g_means2d,
                                  const void* g_depths, const void* g_conics,
                                  const void* g_comps, const void* g_colors, const void* g_opac,
                                  void* d_means, void* d_quats, void* d_log_scales,
-                                 void* d_logits, void* d_sh, void* stream) {
+                                 void* d_logits, void* d_sh, void* d_dr, void* d_ds,
+                                 void* stream) {
   if (n <= 0 || kb < (degree + 1) * (degree + 1)) return (int)cudaErrorInvalidValue;
-  const float* in[7] = {(const float*)means, (const float*)quats, (const float*)log_scales,
-                        (const float*)logits, (const float*)sh, (const float*)view,
-                        (const float*)K};
+  const bool def = dx != nullptr;
+  if (def != (dr != nullptr) || def != (ds != nullptr) || def != (d_dr != nullptr) ||
+      def != (d_ds != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* in[10] = {(const float*)means, (const float*)quats, (const float*)log_scales,
+                         (const float*)logits, (const float*)sh, (const float*)view,
+                         (const float*)K, (const float*)dx, (const float*)dr,
+                         (const float*)ds};
   const float* gin[6] = {(const float*)g_means2d, (const float*)g_depths,
                          (const float*)g_conics, (const float*)g_comps,
                          (const float*)g_colors, (const float*)g_opac};
-  float* out[5] = {(float*)d_means, (float*)d_quats, (float*)d_log_scales, (float*)d_logits,
-                   (float*)d_sh};
+  float* out[7] = {(float*)d_means, (float*)d_quats, (float*)d_log_scales, (float*)d_logits,
+                   (float*)d_sh, (float*)d_dr, (float*)d_ds};
   cudaStream_t st = (cudaStream_t)stream;
-  return antialiased ? bwd_degree<true>(degree, n, 3 * kb, width, height, in, gin, out, st)
-                     : bwd_degree<false>(degree, n, 3 * kb, width, height, in, gin, out, st);
+  const int k3 = 3 * kb;
+  if (def)
+    return antialiased ? bwd_degree<true, true>(degree, n, k3, width, height, in, gin, out, st)
+                       : bwd_degree<false, true>(degree, n, k3, width, height, in, gin, out, st);
+  return antialiased ? bwd_degree<true, false>(degree, n, k3, width, height, in, gin, out, st)
+                     : bwd_degree<false, false>(degree, n, k3, width, height, in, gin, out, st);
 }

@@ -227,8 +227,10 @@ def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
     under the keys of the JAX package's ``.npz`` checkpoints:
     ``params/<k>``, ``adam_mu/<k>``, ``adam_nu/<k>`` for the six parameter
     groups, ``alive``, ``xyz_grad_accum``, ``xyz_grad_count``,
-    ``max_radii2d``, ``adam_step``, ``iteration`` and, with pose
-    refinement, ``poses/deltas``, ``poses/mu``, ``poses/nu``."""
+    ``max_radii2d``, ``adam_step``, ``iteration``, with pose refinement
+    ``poses/deltas``, ``poses/mu``, ``poses/nu``, and with a deformation
+    network ``deform/params/<name>``, ``deform/adam_mu/<name>``,
+    ``deform/adam_nu/<name>`` (the port's own keys)."""
     def npy(t):
         return t.detach().cpu().numpy()
 
@@ -244,6 +246,10 @@ def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
     if state.poses is not None:
         for k in _POSE_KEYS:
             out[f"poses/{k}"] = npy(getattr(state.poses, k))
+    if getattr(state, "deform", None) is not None:
+        from gaussian_splatting_tpu_torch.models.deform import to_numpy
+
+        out.update(to_numpy(state.deform))
     return out
 
 
@@ -251,9 +257,11 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray], device: DeviceLike = N
     """The ``training.step.TrainState`` on ``device`` (CUDA unless given)
     from numpy arrays under the keys ``train_state_to_numpy`` writes (the
     JAX checkpoint's keys): parameters, Adam moments and step, iteration,
-    the densify accumulators and, when ``poses/deltas`` is present, the pose
-    corrections. This is how a JAX training state, or a checkpoint, enters
-    the port."""
+    the densify accumulators, when ``poses/deltas`` is present the pose
+    corrections, and when ``deform/params/*`` are the deformation network
+    and its moments. This is how a JAX training state, or a checkpoint,
+    enters the port."""
+    from gaussian_splatting_tpu_torch.models.deform import from_numpy as deform_from_numpy
     from gaussian_splatting_tpu_torch.training.optimizer import AdamState
     from gaussian_splatting_tpu_torch.training.step import PoseState, TrainState
 
@@ -275,4 +283,5 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray], device: DeviceLike = N
     return TrainState(gauss=gauss,
                       opt=AdamState(mu=moments("adam_mu"), nu=moments("adam_nu"),
                                     step=i32(arrays["adam_step"])),
-                      iteration=i32(arrays["iteration"]), poses=poses)
+                      iteration=i32(arrays["iteration"]), poses=poses,
+                      deform=deform_from_numpy(arrays, dev))

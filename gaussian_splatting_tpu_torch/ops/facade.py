@@ -4,8 +4,11 @@
 Backend ``"auto"`` resolves to ``"cuda"`` (binning + the hand-written
 kernels); ``"ref"`` is the PyTorch oracle. The render cache returns an
 earlier result when the view matrix is within ``cache_view_eps`` (Frobenius
-norm) of a cached one; it holds the last 32 views. The facade serves
-interactive and evaluation use, so it renders without autograd.
+norm) of a cached one at the same time; it holds the last 32 views. The
+facade serves interactive and evaluation use, so it renders without
+autograd. A deforming scene (Deformable 3D Gaussians, ``models/deform.py``)
+renders at a time ``t``: the deformation network (``deform``, a
+``DeformState``) runs its forward over every row of the parameters given.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ class GaussianRasterizer:
         cache_view_eps: float = 0.01,
         sh_degree: int = 3,
         device: DeviceLike = None,
+        deform=None,
     ):
         self.device = resolve_device(device)
+        self.deform = deform
         self.backend = resolve_backend(backend)
         self.width = width
         self.height = height
@@ -47,43 +52,57 @@ class GaussianRasterizer:
         self.sh_degree = sh_degree
         self.enable_caching = enable_caching
         self.cache_view_eps = cache_view_eps
-        self._cache: List = []  # [(viewmat np, RenderOut)]
+        self._cache: List = []  # [(viewmat np, t, RenderOut)]
         self.cache_hits = 0
         self.cache_misses = 0
 
-    def _cache_lookup(self, viewmat: np.ndarray) -> Optional[RenderOut]:
-        for vm, out in self._cache:
-            if np.linalg.norm(vm - viewmat) < self.cache_view_eps:
+    def _cache_lookup(self, viewmat: np.ndarray, t) -> Optional[RenderOut]:
+        for vm, tc, out in self._cache:
+            if tc == t and np.linalg.norm(vm - viewmat) < self.cache_view_eps:
                 self.cache_hits += 1
                 return out
         self.cache_misses += 1
         return None
 
-    def render_single(self, params, viewpoint: Dict, bg=None) -> RenderOut:
+    def render_single(self, params, viewpoint: Dict, bg=None,
+                      t: Optional[float] = None) -> RenderOut:
         """params: a GaussianParams, or a dict with means3D / scales (raw
         log) / rotations / opacities (raw logit) / shs; viewpoint: a dict
-        with world_view_transform (4, 4) and K (3, 3)."""
+        with world_view_transform (4, 4) and K (3, 3). With a time ``t`` the
+        gaussians deform by the rasterizer's ``deform`` network at t."""
         with profiling.annotate("render.frame"):
-            return self._render_single(params, viewpoint, bg)
+            return self._render_single(params, viewpoint, bg, t)
 
-    def _render_single(self, params, viewpoint: Dict, bg) -> RenderOut:
+    def _render_single(self, params, viewpoint: Dict, bg, t) -> RenderOut:
+        deform = self.deform
         vm = viewpoint["world_view_transform"]
         viewmat = (vm.detach().cpu().numpy() if torch.is_tensor(vm)
                    else np.asarray(vm)).astype(np.float32)
+        if t is not None and deform is None:
+            raise ValueError("render_single: a time t needs the rasterizer's deformation "
+                             "network (GaussianRasterizer(deform=...))")
+        t = None if t is None else float(t)
         if self.enable_caching:
-            hit = self._cache_lookup(viewmat)
+            hit = self._cache_lookup(viewmat, t)
             if hit is not None:
                 return hit
         means, quats, log_scales, logit_op, sh = _unpack_params(params)
         if bg is None:
             bg = torch.zeros((3,), dtype=torch.float32)
         with torch.no_grad():
+            offsets = None
+            if t is not None:
+                from gaussian_splatting_tpu_torch.models.deform import offsets as deform_offsets
+
+                offsets = deform_offsets(deform.params, deform.spec,
+                                         torch.as_tensor(means, dtype=torch.float32,
+                                                         device=self.device), None, t)
             out = render(means, quats, log_scales, logit_op, sh, viewmat,
                          viewpoint["K"], self.width, self.height,
                          sh_degree=self.sh_degree, bg=bg, backend=self.backend,
-                         tile_size=self.tile_size, device=self.device)
+                         tile_size=self.tile_size, offsets=offsets, device=self.device)
         if self.enable_caching:
-            self._cache.append((viewmat, out))
+            self._cache.append((viewmat, t, out))
             if len(self._cache) > _CACHE_SIZE:
                 self._cache.pop(0)
         return out

@@ -11,6 +11,11 @@ is ``project_shade_plain`` (the arithmetic of the autograd path, which pose
 refinement still takes) and the backward ``project_shade_bwd_plain``, the
 kernel's hand-derived formulas written as tensor operations.
 
+Deformable 3D Gaussians (``models/deform.py``) hand the pair per-view
+offsets ``(dx, dr, ds)``, added after the activations: the mean + dx,
+exp(log s) + ds and normalize(q) + dr, whose sum the rotation normalizes
+again. Without offsets the pair runs the static kernel instances, as before.
+
 The JAX package computes this layer as plain ``jnp`` under ``jax.grad``
 (``gaussian_splatting_tpu/ops/projection.py``, ``core/sh.py``), so the kernel
 pair replaces no TPU kernel.
@@ -40,14 +45,33 @@ def _check_mode(rasterize_mode: str) -> bool:
     return rasterize_mode == "antialiased"
 
 
+def normalize_quats(q: torch.Tensor):
+    """(q / max(|q|, 1e-12), |q|, 1 / max(|q|, 1e-12)) entry by entry, in the
+    kernel's operation order."""
+    w, x, y, z = q.unbind(-1)
+    n = torch.sqrt(w * w + x * x + y * y + z * z)
+    inv = 1.0 / torch.clamp_min(n, 1e-12)
+    return q * inv[:, None], n, inv
+
+
+def apply_offsets(means, quats, scales, offsets):
+    """The deformed (means, quats, scales): mean + dx, normalize(q) + dr and
+    scales + ds, where ``offsets`` is ``(dx, dr, ds)``; None leaves all three
+    as they are."""
+    if offsets is None:
+        return means, quats, scales
+    dx, dr, ds = offsets
+    return means + dx, normalize_quats(quats)[0] + dr, scales + ds
+
+
 def project_shade_plain(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
                         width: int, height: int, sh_degree: int = 3,
-                        rasterize_mode: str = "classic"):
+                        rasterize_mode: str = "classic", offsets=None):
     """(Projected, colors (N, 3), opacities (N,)) in plain PyTorch,
-    differentiable through autograd in every input, the view included.
-    ``logit_opacities`` is (N,)."""
+    differentiable through autograd in every input, the view and the
+    ``offsets`` ``(dx, dr, ds)`` included. ``logit_opacities`` is (N,)."""
     antialiased = _check_mode(rasterize_mode)
-    scales = scale_activation(log_scales)
+    means, quats, scales = apply_offsets(means, quats, scale_activation(log_scales), offsets)
     opac = opacity_activation(logit_opacities)
     proj = project_gaussians(means, quats, scales, viewmat, K, width, height, eps2d=EPS2D,
                              opacities=opac)
@@ -91,13 +115,19 @@ def _sh_basis_grads(degree: int, x, y, z):
 def project_shade_bwd_plain(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
                             width: int, height: int, sh_degree: int, rasterize_mode: str,
                             g_means2d=None, g_depths=None, g_conics=None, g_comps=None,
-                            g_colors=None, g_opac=None):
+                            g_colors=None, g_opac=None, offsets=None):
     """The gradients (means, quats, log_scales, logit_opacities, sh_coeffs)
     of ``project_shade_plain``'s outputs' cotangents (None is zero), with
     the view held fixed: the kernel's hand-derived formulas as tensor
     operations. The forward's intermediates are recomputed from the inputs;
-    each clamp and guard passes or stops its gradient as autograd's does."""
+    each clamp and guard passes or stops its gradient as autograd's does.
+    With ``offsets`` ``(dx, dr, ds)`` it also returns the gradients of dr
+    and ds (dx's is the means')."""
     antialiased = _check_mode(rasterize_mode)
+    if offsets is not None:
+        quats1, qn1, inv1 = normalize_quats(quats)
+        means = means + offsets[0]
+        quats = quats1 + offsets[1]
     dt = means.dtype
     zero = torch.zeros_like(means[:, 0])
 
@@ -142,6 +172,8 @@ def project_shade_bwd_plain(means, quats, log_scales, logit_opacities, sh_coeffs
     # The projection's forward in ops/projection.py's operation order: det
     # and det_orig are cancellations that decide the guards.
     scales = torch.exp(log_scales)
+    if offsets is not None:
+        scales = scales + offsets[2]
     v = scales * scales
     op = torch.sigmoid(logit_opacities.reshape(-1).to(dt))
     qw, qx, qy, qz = quats.unbind(-1)
@@ -237,7 +269,11 @@ def project_shade_bwd_plain(means, quats, log_scales, logit_opacities, sh_coeffs
     hr = [[sum(h[i][j] * r[j][k] for j in range(3)) for k in range(3)] for i in range(3)]
     g_v = [sum(r[i][k] * hr[i][k] for i in range(3)) for k in range(3)]
     g_r = [[2.0 * hr[i][k] * v[:, k] for k in range(3)] for i in range(3)]
-    g_log_scales = 2.0 * v * torch.stack(g_v, dim=-1)
+    if offsets is None:
+        g_log_scales = 2.0 * v * torch.stack(g_v, dim=-1)
+    else:
+        g_ds = 2.0 * scales * torch.stack(g_v, dim=-1)
+        g_log_scales = g_ds * torch.exp(log_scales)
 
     # The rotation matrix of the unit quaternion, then its normalization.
     g_qw = 2.0 * (-qz * g_r[0][1] + qy * g_r[0][2] + qz * g_r[1][0] - qx * g_r[1][2]
@@ -267,19 +303,32 @@ def project_shade_bwd_plain(means, quats, log_scales, logit_opacities, sh_coeffs
     g_z = gz_out + torch.where(z_ok, g_zs, zero)
     g_p = torch.stack([g_x, g_y, g_z], dim=-1)
     g_means = g_p @ W + g_d
-    return g_means, g_quats, g_log_scales, g_logit, g_sh
+    if offsets is None:
+        return g_means, g_quats, g_log_scales, g_logit, g_sh
+    # The rotation's input is normalize(q) + dr: g_quats is dr's gradient.
+    along1 = torch.where(qn1 >= 1e-12, (g_quats * quats1).sum(-1), zero)
+    g_q = (g_quats - along1[:, None] * quats1) * inv1[:, None]
+    return g_means, g_q, g_log_scales, g_logit, g_sh, g_quats, g_ds
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _cuda_inputs(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K):
+def _cuda_inputs(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
+                 offsets=None):
+    """The kernels' ten inputs: the five parameter tensors, the view, K and
+    the three offsets (None without them), checked."""
     n = means.shape[0]
     ins = [t.contiguous() for t in (means, quats, log_scales, logit_opacities, sh_coeffs)]
     shapes = [(n, 3), (n, 4), (n, 3), (n,), (n, sh_coeffs.shape[1], 3)]
-    for name, x, shape in zip(("means", "quats", "log_scales", "logit_opacities", "sh_coeffs"),
-                              ins, shapes):
+    names = ["means", "quats", "log_scales", "logit_opacities", "sh_coeffs"]
+    offs = [None] * 3
+    if offsets is not None:
+        offs = [t.contiguous() for t in offsets]
+        ins, shapes = ins + offs, shapes + [(n, 3), (n, 4), (n, 3)]
+        names += ["dx", "dr", "ds"]
+    for name, x, shape in zip(names, ins, shapes):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
         if x.device != means.device:
@@ -290,13 +339,14 @@ def _cuda_inputs(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, 
         raise ValueError("viewmat must be (4, 4) and K (3, 3)")
     if not n < 2 ** 31:
         raise ValueError("project_sh takes fewer than 2^31 slots")
-    return ins + cam
+    return ins[:5] + cam + offs
 
 
 def _launch(which: str, ins, width, height, sh_degree, antialiased, tensors) -> None:
-    """``gs_project_sh_<which>`` of ``csrc/project_sh.cu`` on the inputs and
-    ``tensors`` (the forward's outputs; or the backward's cotangents, None
-    a null pointer, and gradients), on the current stream."""
+    """``gs_project_sh_<which>`` of ``csrc/project_sh.cu`` on the ten inputs
+    (None offsets are null pointers) and ``tensors`` (the forward's outputs;
+    or the backward's cotangents, None a null pointer, and gradients), on
+    the current stream."""
     n, kb = ins[0].shape[0], ins[4].shape[1]
     if n == 0:
         return
@@ -315,13 +365,17 @@ def _launch(which: str, ins, width, height, sh_degree, antialiased, tensors) -> 
 class _ProjectShade(torch.autograd.Function):
     """``project_shade_plain`` with the view held fixed: the CUDA kernel pair
     on CUDA tensors, the plain forward and backward on CPU tensors. Saves
-    only the inputs."""
+    only the inputs. The offsets ``dx, dr, ds`` are three more inputs, all
+    None for a static scene."""
 
     @staticmethod
-    def forward(ctx, means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K, cfg):
+    def forward(ctx, means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K, cfg,
+                dx=None, dr=None, ds=None):
         width, height, sh_degree, rasterize_mode = cfg
+        offsets = None if dx is None else (dx, dr, ds)
         if means.device.type == "cuda":
-            ins = _cuda_inputs(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K)
+            ins = _cuda_inputs(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
+                               offsets)
             n, dev = means.shape[0], means.device
             out = [torch.empty((n, 2), device=dev), torch.empty((n,), device=dev),
                    torch.empty((n, 3), device=dev),
@@ -332,7 +386,8 @@ class _ProjectShade(torch.autograd.Function):
         elif means.device.type == "cpu":
             ins = (means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K)
             proj, colors, opac = project_shade_plain(*ins, width, height, sh_degree,
-                                                     rasterize_mode)
+                                                     rasterize_mode, offsets)
+            ins = ins + (dx, dr, ds)
             out = [proj.means2d, proj.depths, proj.conics, proj.radii, proj.compensations,
                    colors, opac]
         else:
@@ -347,32 +402,40 @@ class _ProjectShade(torch.autograd.Function):
     def backward(ctx, g_means2d, g_depths, g_conics, _g_radii, g_comps, g_colors, g_opac):
         ins = ctx.saved_tensors
         width, height, sh_degree, rasterize_mode = ctx.cfg
+        deform = ins[7] is not None
         grads = (g_means2d, g_depths, g_conics, g_comps, g_colors, g_opac)
         if ins[0].device.type == "cuda":
             out = [torch.empty_like(t) for t in ins[:5]]
+            if deform:
+                out += [torch.empty_like(t) for t in ins[8:]]
             grads = [None if g is None else g.to(torch.float32).contiguous() for g in grads]
             _launch("bwd", ins, width, height, sh_degree, rasterize_mode == "antialiased",
-                    [*grads, *out])
+                    [*grads, *out, *([None, None] if not deform else [])])
         else:
-            out = project_shade_bwd_plain(*ins, width, height, sh_degree, rasterize_mode,
-                                          *grads)
-        return (*(g if need else None for g, need in zip(out, ctx.needs_input_grad)),
-                None, None, None)
+            out = project_shade_bwd_plain(*ins[:7], width, height, sh_degree, rasterize_mode,
+                                          *grads, offsets=ins[7:] if deform else None)
+        # dx's gradient is the means' (a copy: autograd may add into either
+        # in place).
+        out = list(out[:5]) + ([out[0].clone(), *out[5:]] if deform else [None] * 3)
+        need = ctx.needs_input_grad
+        g = [o if nd else None for o, nd in zip(out[:5], need[:5])]
+        return (*g, None, None, None, *(o if nd else None for o, nd in zip(out[5:], need[8:])))
 
 
 def project_shade(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
                   width: int, height: int, sh_degree: int = 3,
-                  rasterize_mode: str = "classic"):
+                  rasterize_mode: str = "classic", offsets=None):
     """``project_shade_plain``'s outputs through the kernel pair (CUDA) or
     the plain forward and hand-derived backward (CPU); the view gets no
-    gradient. ``logit_opacities`` is (N,)."""
+    gradient, the ``offsets`` ``(dx, dr, ds)`` do. ``logit_opacities`` is
+    (N,)."""
     _check_mode(rasterize_mode)
     if not 0 <= sh_degree <= 3 or sh_coeffs.shape[1] < (sh_degree + 1) ** 2:
         raise ValueError(f"sh_degree {sh_degree} needs 0..3 and at least "
                          f"{(sh_degree + 1) ** 2} SH bases, got {sh_coeffs.shape[1]}")
     means2d, depths, conics, radii, comps, colors, opac = _ProjectShade.apply(
         means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
-        (width, height, sh_degree, rasterize_mode))
+        (width, height, sh_degree, rasterize_mode), *(offsets or ()))
     proj = Projected(means2d=means2d, depths=depths, conics=conics, radii=radii,
                      compensations=comps)
     return proj, colors, opac

@@ -73,6 +73,7 @@ def render(
     grad_buffer_frac: float = 1.0,
     reduce_slices: int = 0,
     depth_grad: bool = True,
+    offsets=None,
     device: DeviceLike = None,
 ) -> RenderOut:
     """Render one view on ``device`` (CUDA unless given; inputs are moved
@@ -84,7 +85,9 @@ def render(
     ``depth_grad`` (cuda backend) size and shape the backward's gradient
     reduce; ``depth_grad=False`` promises that the depth output is never
     differentiated; ``sort_buckets`` and ``bucket_headroom`` bin through the
-    bucket partition (see ``rasterize_cuda.rasterize_tiled``)."""
+    bucket partition (see ``rasterize_cuda.rasterize_tiled``). ``offsets``
+    ``(dx, dr, ds)``, tensors on ``device``, deform the gaussians after the
+    activations (``project_and_shade``)."""
     backend = resolve_backend(backend)
     dev = resolve_device(device)
 
@@ -95,7 +98,7 @@ def render(
     proj, colors, opac = project_and_shade(
         *(on_dev(x) for x in (means, quats, log_scales, logit_opacities, sh_coeffs,
                               viewmat, K)),
-        width, height, sh_degree=sh_degree, rasterize_mode=rasterize_mode)
+        width, height, sh_degree=sh_degree, rasterize_mode=rasterize_mode, offsets=offsets)
 
     bg = None if bg is None else on_dev(bg)
     stats = None
@@ -133,7 +136,7 @@ def render(
 
 def project_and_shade(means, quats, log_scales, logit_opacities, sh_coeffs,
                       viewmat, K, width: int, height: int, sh_degree: int = 3,
-                      rasterize_mode: str = "classic"):
+                      rasterize_mode: str = "classic", offsets=None):
     """The screen-space inputs of the rasterizer for one view: (Projected,
     colors (N, 3), opacities (N,)). Applies the activations, projects with
     opacity-aware radii (the pre-compensation opacity bounds the effective
@@ -142,12 +145,15 @@ def project_and_shade(means, quats, log_scales, logit_opacities, sh_coeffs,
     directions from the camera center. Runs ``ops/project_sh.py``'s
     Function (the CUDA kernel pair, or its plain version on the CPU); where
     the view itself needs a gradient (pose refinement) it runs the plain
-    code under autograd instead and counts ``project_sh.autograd``. Spans
-    ``render.project_sh`` and, for its backward, ``render.project_sh.bwd``."""
+    code under autograd instead and counts ``project_sh.autograd``.
+    ``offsets`` ``(dx, dr, ds)`` (Deformable 3D Gaussians) move the means,
+    scales and rotations after the activations (``ops/project_sh.py``).
+    Spans ``render.project_sh`` and, for its backward,
+    ``render.project_sh.bwd``."""
     with profiling.annotate("render.project_sh"):
         mark = profiling.grad_span("render.project_sh.bwd")
         args = (means, quats, mark.input(log_scales), logit_opacities.reshape(-1), sh_coeffs,
-                viewmat, K, width, height, sh_degree, rasterize_mode)
+                viewmat, K, width, height, sh_degree, rasterize_mode, offsets)
         if torch.is_grad_enabled() and (viewmat.requires_grad or K.requires_grad):
             profiling.count("project_sh.autograd")
             proj, colors, opac = project_shade_plain(*args)

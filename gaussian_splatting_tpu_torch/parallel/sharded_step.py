@@ -269,6 +269,12 @@ def band_geometry(height: int, tile_size: int, M: int) -> Tuple[int, int]:
     return band_h, M * band_h
 
 
+DEFORM_ON_MESH = (
+    "Deformable 3D Gaussians on a mesh: the sharded step has no deformation MLP yet (its "
+    "weights replicated on every rank with an all-reduce of their gradients, the offsets of "
+    "each rank's ZeRO rows, the time of each rank's views); train with deform on one device")
+
+
 def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: int,
                             backend: str, scene_extent: float):
     """The training step on ``mesh``. Returns ``(step, band_h, h_pad)``.
@@ -279,7 +285,10 @@ def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: in
     renders views [d B/D, (d+1) B/D) at rows [m band_h, (m+1) band_h). The
     state's tensors are updated in place; the metrics, keyed as the
     single-device step's, are reduced over the mesh and the same on every
-    rank."""
+    rank. The deformation (``config.deform``) is not sharded yet and
+    raises ``NotImplementedError``."""
+    if getattr(config, "deform", False):
+        raise NotImplementedError(DEFORM_ON_MESH)
     backend = resolve_backend(backend)
     D, M = mesh.shape["data"], mesh.shape["model"]
     d, m = mesh.coord

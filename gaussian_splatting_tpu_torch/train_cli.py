@@ -75,6 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gradient-buffer capacity as a fraction of the exact "
                         "bound (<1 shrinks the backward reduce sort; the "
                         "trainer probes occupancy and grows it on drops)")
+    p.add_argument("--deform", action="store_true",
+                   help="Deformable 3D Gaussians: a deformation MLP moves the gaussians by "
+                        "each frame's time (a dynamic scene; one device)")
+    p.add_argument("--deform-warmup", type=int, default=None,
+                   help="static iterations before the deformation starts")
     p.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-model", type=int, default=None)
@@ -101,7 +106,7 @@ def config_from_args(args):
         "mesh_data": "mesh_data", "mesh_model": "mesh_tile",
         "densify_topk": "densify_topk_fraction",
         "pose_lr": "pose_lr_init", "pose_start_iter": "pose_start_iter",
-        "grad_buffer_frac": "grad_buffer_frac",
+        "grad_buffer_frac": "grad_buffer_frac", "deform_warmup": "deform_warmup",
         "wandb_mode": "wandb_mode", "wandb_project": "wandb_project",
         "wandb_run_name": "wandb_run_name",
     }
@@ -112,17 +117,21 @@ def config_from_args(args):
             overrides[field] = v
     if getattr(args, "optimize_poses", False):
         overrides["optimize_poses"] = True
+    if getattr(args, "deform", False):
+        overrides["deform"] = True
     return dataclasses.replace(cfg, **overrides)
 
 
 def build_dataset(merged, image_scale=1.0):
-    """merged_data dict -> ViewDataset (single shared resolution)."""
+    """merged_data dict -> ViewDataset (single shared resolution). Each
+    frame's time is its index over its video's last kept index, in [0, 1]:
+    the deformation's t."""
     import cv2
 
     from gaussian_splatting_tpu_torch.training.trainer import ViewDataset
     from gaussian_splatting_tpu_torch.video.loader import VideoLoader
 
-    images, viewmats, Ks = [], [], []
+    images, viewmats, Ks, times = [], [], [], []
     target_wh = None
     for vi, info in enumerate(merged["video_info"]):
         loader = VideoLoader(info["path"])
@@ -130,6 +139,7 @@ def build_dataset(merged, image_scale=1.0):
         K = np.asarray(merged["all_intrinsics"][vi], np.float64).copy()
         fidx = np.asarray(merged["frame_indices"][vi])
         loader.preload(fidx[: len(poses)].tolist())
+        last = max(int(fidx[: len(poses)].max()) if len(poses) else 0, 1)
         for j, fi in enumerate(fidx[: len(poses)]):
             frame = loader.get_frame(int(fi))
             if frame is None:
@@ -147,9 +157,11 @@ def build_dataset(merged, image_scale=1.0):
             images.append(frame[:, :, ::-1].copy())  # BGR -> RGB
             viewmats.append(poses[j].astype(np.float32))
             Ks.append(Kj.astype(np.float32))
+            times.append(float(fi) / last)
         loader.release()
     return ViewDataset(
-        images=np.stack(images), viewmats=np.stack(viewmats), Ks=np.stack(Ks)
+        images=np.stack(images), viewmats=np.stack(viewmats), Ks=np.stack(Ks),
+        times=np.asarray(times, np.float32),
     )
 
 

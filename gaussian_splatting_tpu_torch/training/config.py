@@ -7,7 +7,9 @@ name and default, so a configuration means the same in both packages.
 mesh (``mesh_data * mesh_tile > 1``) trains through
 ``parallel/sharded_step.py``, one process a device. The video fields
 (``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) are read by
-the train CLI and ``eval_num_views`` by the eval CLI."""
+the train CLI and ``eval_num_views`` by the eval CLI. The ``deform_*``
+fields (Deformable 3D Gaussians) are the port's own; the JAX package has
+no deformation."""
 
 import dataclasses
 from typing import List, Optional
@@ -121,6 +123,15 @@ class TrainingConfig:
     val_pose_align_lr: float = 3e-3
     # "antialiased" multiplies opacity by the covariance compensation factor.
     rasterize_mode: str = "classic"    # classic | antialiased
+
+    # --- Deformable 3D Gaussians (models/deform.py; the port only): a
+    # deformation MLP of (gamma(x), gamma(t)) a gaussian and view, offsets
+    # of mean, rotation and scale after the activations. Off by default.
+    # The network's shape and its rate and noise schedules are the
+    # published constants of models/deform.py. ---
+    deform: bool = False
+    # Iterations of static warm-up before the MLP runs.
+    deform_warmup: int = 3000
     capacity_headroom: float = 1.5     # buffer capacity / population target
     # The JAX step donates its buffers; the port's step updates the state in
     # place either way.

@@ -2,8 +2,13 @@
 step.py``): renders of a view batch through the kernels, the photometric
 loss, one backward through the backward kernel and the gradient reduce,
 per-group Adam, the scale ceiling, the densify accumulators and optional
-camera-pose refinement. Spans (``utils/profiling``): ``step.loss`` and its
-backward ``step.loss.bwd`` a view, ``step.backward``, ``step.adam``.
+camera-pose refinement. With a deformation network in the state and times
+in the batch (Deformable 3D Gaussians, ``models/deform.py``) each view first
+runs the MLP over the alive slots at its time and renders the gaussians
+moved by its offsets; the network takes a seventh Adam group. Spans
+(``utils/profiling``): ``step.loss`` and its backward ``step.loss.bwd`` a
+view, ``step.backward``, ``step.adam`` and inside it ``step.adam.deform``;
+the MLP's own are ``models/deform.py``'s.
 
 PyTorch runs eagerly: a Python loop over the batch takes the place of the
 JAX ``lax.scan``, and the step updates the state's tensors in place (no copy
@@ -19,6 +24,7 @@ import torch
 
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
 from gaussian_splatting_tpu_torch.core.se3 import apply_pose_delta
+from gaussian_splatting_tpu_torch.models import deform as deform_model
 from gaussian_splatting_tpu_torch.models.densify import clamp_scales
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
@@ -62,6 +68,7 @@ class TrainState:
     opt: AdamState
     iteration: torch.Tensor  # () int32
     poses: Optional[PoseState] = None
+    deform: Optional[deform_model.DeformState] = None
 
 
 @dataclasses.dataclass
@@ -72,6 +79,9 @@ class ViewBatch:
     viewmats: torch.Tensor  # (B, 4, 4) world-to-camera
     Ks: torch.Tensor        # (B, 3, 3)
     view_idx: Optional[torch.Tensor] = None  # (B,) int dataset view ids
+    # (B,) float32 times of the views (with the annealing noise): set, with a
+    # deformation network in the state, the step deforms the gaussians.
+    times: Optional[torch.Tensor] = None
 
 
 def pose_lr_schedule(config, iteration: torch.Tensor) -> torch.Tensor:
@@ -91,14 +101,24 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
     metrics)``: it updates ``state``'s tensors in place and returns it with
     a metrics dict of 0-dim tensors, keyed as the JAX step's (l1, ssim,
     psnr, scale_reg, loss, xyz_lr, grad_norm/<group>, stats/<counter> on the
-    cuda backend, and pose_lr, grad_norm/poses, pose/delta_max when poses
-    are refined)."""
+    cuda backend, pose_lr, grad_norm/poses, pose/delta_max when poses are
+    refined, and deform_lr, grad_norm/deform when the gaussians deform)."""
     dev = resolve_device(device)
     backend = resolve_backend(backend)
     optimize_poses = bool(config.optimize_poses)
     want_stats = backend == "cuda"
+    # The alive slots the MLP runs over, found again (one host sync) only
+    # when the alive mask is another tensor or was written to.
+    rows_of = {"alive": None, "version": None, "rows": None}
 
-    def render_batch(params: GaussianParams, alive, batch: ViewBatch, deltas, pose_on):
+    def alive_rows(alive: torch.Tensor) -> torch.Tensor:
+        if rows_of["alive"] is not alive or rows_of["version"] != alive._version:
+            rows_of.update(alive=alive, version=alive._version,
+                           rows=torch.nonzero(alive).reshape(-1))
+        return rows_of["rows"]
+
+    def render_batch(params: GaussianParams, alive, batch: ViewBatch, deltas, pose_on,
+                     net=None, spec=None):
         sh = params.sh_coeffs
         masked_op = params.masked_opacities(alive)
         total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -110,6 +130,10 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
             viewmat = batch.viewmats[b]
             if pose_on:
                 viewmat = apply_pose_delta(viewmat, deltas[batch.view_idx[b]])
+            offsets = None
+            if net is not None:
+                offsets = deform_model.offsets(net, spec, params.means, alive_rows(alive),
+                                               batch.times[b])
             out = render(
                 params.means, params.quats, params.log_scales, masked_op, sh, viewmat,
                 batch.Ks[b], width, height, sh_degree=sh_degree, backend=backend,
@@ -125,7 +149,7 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                 rasterize_mode=config.rasterize_mode, with_stats=want_stats,
                 # The loss is photometric: the depth output never gets a
                 # cotangent, so the reduce leaves out its payload.
-                depth_grad=False, device=dev)
+                depth_grad=False, offsets=offsets, device=dev)
             radii = out.radii.detach()
             radii_max = radii if radii_max is None else torch.maximum(radii_max, radii)
             with profiling.annotate("step.loss"):
@@ -149,9 +173,13 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
         leaves = GaussianParams(**{k: getattr(gauss.params, k).detach().requires_grad_(True)
                                    for k in PARAM_KEYS})
         deltas = state.poses.deltas.detach().requires_grad_(True) if pose_on else None
+        deform_on = state.deform is not None and batch.times is not None
+        net = ({k: v.detach().requires_grad_(True) for k, v in state.deform.params.items()}
+               if deform_on else None)
 
-        total, m_acc, s_acc, radii_max = render_batch(leaves, gauss.alive, batch, deltas,
-                                                      pose_on)
+        total, m_acc, s_acc, radii_max = render_batch(
+            leaves, gauss.alive, batch, deltas, pose_on, net,
+            state.deform.spec if deform_on else None)
         reg = scale_ratio_reg(leaves.log_scales, gauss.alive, config.scale_reg_max_ratio,
                               config.scale_reg_weight)
         loss = total / B + reg
@@ -192,6 +220,18 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                 metrics["pose_lr"] = plr
                 metrics["grad_norm/poses"] = torch.linalg.norm(deltas.grad)
                 metrics["pose/delta_max"] = poses.deltas.abs().max()
+            if deform_on:
+                with profiling.annotate("step.adam.deform"):
+                    dlr = deform_model.lr_schedule(config, state.iteration)
+                    c1, c2 = adam_bias_corrections(state.opt.step, config.adam_b1,
+                                                   config.adam_b2)
+                    dgrads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
+                              for k, v in net.items()}
+                    deform_model.adam_update(state.deform, dgrads, dlr, c1, c2,
+                                             config.adam_b1, config.adam_b2, config.adam_eps)
+                    metrics["deform_lr"] = dlr
+                    metrics["grad_norm/deform"] = torch.linalg.norm(
+                        torch.stack([torch.linalg.norm(g) for g in dgrads.values()]))
             state.iteration += 1
             metrics["loss"] = loss.detach()
             metrics["xyz_lr"] = xyz_lr

@@ -35,6 +35,16 @@ host-cadenced event: ``train.densify``, ``train.grow``,
 ``train.watch_budgets``, ``train.watch_tile_cap``,
 ``train.probe_grad_buffer``, ``train.validate``, ``train.histograms``,
 ``train.checkpoint``.
+
+Deformable 3D Gaussians (``config.deform``, ``models/deform.py``): the state
+gains the deformation network and its moments (initialised from
+``val_seed`` unless the checkpoint holds them); each view has a time
+(``ViewDataset.times``, frame order v / (V - 1) by default); from
+``deform_warmup`` on each batch carries its views' times plus the annealing
+noise, drawn from the trainer's seeded generator, and the step deforms the
+gaussians; validation renders each view at its time. Densify and capacity
+growth leave the network as it is (it has no per-gaussian rows). Not on a
+mesh yet (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import torch
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
 from gaussian_splatting_tpu_torch.core.activations import opacity_activation, scale_activation
 from gaussian_splatting_tpu_torch.core.se3 import apply_pose_delta
+from gaussian_splatting_tpu_torch.models import deform as deform_model
 from gaussian_splatting_tpu_torch.models.densify import densify_and_prune, reset_opacity
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
@@ -85,6 +96,16 @@ class ViewDataset:
     images: np.ndarray    # (V, H, W, 3) uint8, RGB
     viewmats: np.ndarray  # (V, 4, 4) float32 world-to-camera
     Ks: np.ndarray        # (V, 3, 3) float32
+    # (V,) float32 time of each view (a video's frame order); None: v / (V - 1)
+    # where the deformation needs one.
+    times: Optional[np.ndarray] = None
+
+    def view_times(self) -> np.ndarray:
+        """Each view's time: ``times``, or frame order v / (V - 1)."""
+        if self.times is not None:
+            return np.asarray(self.times, np.float32).reshape(-1)
+        V = self.num_views
+        return (np.arange(V, dtype=np.float64) / max(V - 1, 1)).astype(np.float32)
 
     @property
     def num_views(self) -> int:
@@ -188,6 +209,7 @@ class GaussianTrainer:
         self._last_rebudget_iter = -(10**9)
         self._tilecap_strikes = 0
         self._last_tilecap_iter = -(10**9)
+        self._view_times = None
 
     def _active_sh_degree(self, iteration: int) -> int:
         cfg = self.config
@@ -195,13 +217,24 @@ class GaussianTrainer:
 
     # ---- static sizes from the population ---------------------------------
 
-    def _measure_footprints(self, state, dataset, cfg):
+    def _measure_footprints(self, state, dataset, cfg, bands: bool = False):
         """Exact per-gaussian sheared-window tile counts (``tiling.
         exact_tile_counts``, the formula of ``_tile_rects``) of the alive
         gaussians over up to 3 evenly spaced views: one array of the
-        nonzero counts per view."""
+        nonzero counts per view. With ``bands`` on a mesh whose model axis
+        splits the image into bands of tile rows, one array per view and
+        band, each footprint clipped to its band as the band's binning
+        clips it (a footprint cut by a band edge falls into a smaller
+        class)."""
         from gaussian_splatting_tpu_torch.ops.projection import project_gaussians
         from gaussian_splatting_tpu_torch.ops.tiling import exact_tile_counts
+
+        M = self.mesh.shape["model"] if bands and self.mesh is not None else 1
+        band_h = dataset.height
+        if M > 1:
+            from gaussian_splatting_tpu_torch.parallel.sharded_step import band_geometry
+
+            band_h = band_geometry(dataset.height, cfg.tile_size, M)[0]
 
         p = state.gauss.params
         dev = p.means.device
@@ -216,12 +249,16 @@ class GaussianTrainer:
                     torch.as_tensor(dataset.viewmats[i], dtype=torch.float32, device=dev),
                     torch.as_tensor(dataset.Ks[i], dtype=torch.float32, device=dev),
                     dataset.width, dataset.height)
-                nt = exact_tile_counts(
-                    proj.means2d.cpu().numpy()[alive], proj.radii.cpu().numpy()[alive],
-                    dataset.width, dataset.height, cfg.tile_size,
-                    conics=proj.conics.cpu().numpy()[alive], opacities=opac[alive])
-                if (nt > 0).any():
-                    counts.append(nt[nt > 0])
+                means2d = proj.means2d.cpu().numpy()[alive]
+                radii = proj.radii.cpu().numpy()[alive]
+                conics = proj.conics.cpu().numpy()[alive]
+                for m in range(M):
+                    nt = exact_tile_counts(
+                        means2d - np.asarray([0.0, m * band_h], means2d.dtype), radii,
+                        dataset.width, band_h, cfg.tile_size, conics=conics,
+                        opacities=opac[alive])
+                    if (nt > 0).any():
+                        counts.append(nt[nt > 0])
         return counts
 
     def _choose_max_tiles(self, state, dataset, cfg) -> int:
@@ -239,17 +276,18 @@ class GaussianTrainer:
     def _choose_class_budgets(self, state, dataset, cfg, max_t,
                               headroom: float = 1.1) -> tuple:
         """Per-footprint-class gaussian budgets for the compact binning: the
-        per-class maximum of the class histograms over a few views, times
-        ``headroom``, rounded up to 128 plus 128, capped at the capacity,
-        trimmed under a power of two where that costs at most 10 % of the
-        slots (never below the measured populations), and scaled down to
-        ``max_sort_entries`` slots if above."""
+        per-class maximum of the class histograms over a few views (and
+        over the bands of a mesh, which bins each band with these budgets),
+        times ``headroom``, rounded up to 128 plus 128, capped at the
+        capacity, trimmed under a power of two where that costs at most 10 %
+        of the slots (never below the measured populations), and scaled
+        down to ``max_sort_entries`` slots if above."""
         from gaussian_splatting_tpu_torch.ops.tiling import class_caps, squeeze_budgets_under_pow2
 
         caps = np.asarray(class_caps(int(max_t)), np.int64)
         L = len(caps)
         per_view = []
-        for nt in self._measure_footprints(state, dataset, cfg):
+        for nt in self._measure_footprints(state, dataset, cfg, bands=True):
             cls = np.searchsorted(caps, np.clip(nt, 1, max_t))
             per_view.append(np.bincount(cls, minlength=L)[:L])
         counts = np.max(per_view, axis=0) if per_view else np.zeros(L, np.int64)
@@ -337,7 +375,8 @@ class GaussianTrainer:
         gauss = grow_capacity(state.gauss, new_cap)
         opt = AdamState(mu=_pad_moments(state.opt.mu, gauss.params),
                         nu=_pad_moments(state.opt.nu, gauss.params), step=state.opt.step)
-        return TrainState(gauss=gauss, opt=opt, iteration=state.iteration, poses=state.poses)
+        return TrainState(gauss=gauss, opt=opt, iteration=state.iteration, poses=state.poses,
+                          deform=state.deform)
 
     def _densify(self, state: TrainState, extent: float, it: int) -> TrainState:
         cfg = self.config
@@ -364,7 +403,7 @@ class GaussianTrainer:
             "densify/event_idx": self._cum["events"],
         }, step=it)
         return TrainState(gauss=gauss, opt=AdamState(mu=mu, nu=nu, step=state.opt.step),
-                          iteration=state.iteration, poses=state.poses)
+                          iteration=state.iteration, poses=state.poses, deform=state.deform)
 
     def _save_final(self, state: TrainState, out: Path, extent: float) -> int:
         if not self._is_main:
@@ -382,6 +421,10 @@ class GaussianTrainer:
               colors: Optional[np.ndarray] = None,
               resume_from: Optional[str] = None) -> TrainState:
         cfg = self.config
+        if cfg.deform and (self.mesh is not None or cfg.mesh_data * cfg.mesh_tile > 1):
+            from gaussian_splatting_tpu_torch.parallel.sharded_step import DEFORM_ON_MESH
+
+            raise NotImplementedError(DEFORM_ON_MESH)
         if self.mesh is None and cfg.mesh_data * cfg.mesh_tile > 1:
             from gaussian_splatting_tpu_torch.parallel.mesh import make_mesh
 
@@ -440,6 +483,13 @@ class GaussianTrainer:
             state.poses = pose_state_init(V, dev)
             log.info("pose refinement on: %d views, lr %.1e -> %.1e from iter %d", V,
                      cfg.pose_lr_init, cfg.pose_lr_final, cfg.pose_start_iter)
+        if cfg.deform and state.deform is None:
+            state.deform = deform_model.deform_state_init(deform_model.DeformSpec(),
+                                                          cfg.val_seed, dev)
+            log.info("deformation MLP %s, warm-up %d iterations", state.deform.spec,
+                     cfg.deform_warmup)
+        if not cfg.deform:
+            state.deform = None
         log.info("capacity %d, alive %d", state.gauss.capacity, int(state.gauss.n_alive()))
 
         # Adaptive tile-footprint cap from the population's footprints.
@@ -483,6 +533,8 @@ class GaussianTrainer:
         d_images = torch.as_tensor(dataset.images, device=dev)  # uint8 on the device
         d_viewmats = torch.as_tensor(dataset.viewmats, dtype=torch.float32, device=dev)
         d_Ks = torch.as_tensor(dataset.Ks, dtype=torch.float32, device=dev)
+        self._view_times = dataset.view_times() if cfg.deform else None
+        d_times = (torch.as_tensor(self._view_times, device=dev) if cfg.deform else None)
 
         def gather_batch(idx) -> ViewBatch:
             if not torch.is_tensor(idx):
@@ -512,6 +564,8 @@ class GaussianTrainer:
              for _ in range(start_iter, max(cfg.iterations, start_iter))],
             np.int64).reshape(-1, cfg.batch_size), device=dev)
         self._generator = torch.Generator(device=dev).manual_seed(cfg.val_seed)
+        # The annealing noise on the views' times (Deformable 3D Gaussians).
+        self._time_generator = torch.Generator(device=dev).manual_seed(cfg.val_seed + 2)
         it = start_iter
         t_window = time.time()
         window_iters = 0
@@ -523,6 +577,12 @@ class GaussianTrainer:
         while it < cfg.iterations:
             with profiling.annotate("train.batch"):
                 batch = gather_batch(batch_views[it - start_iter])
+                if cfg.deform and it >= cfg.deform_warmup:
+                    batch.times = d_times[batch.view_idx]
+                    sd = deform_model.time_noise_scale(it, V)
+                    if sd > 0.0:
+                        batch.times = batch.times + sd * torch.randn(
+                            batch.times.shape, generator=self._time_generator, device=dev)
             sh_deg = self._active_sh_degree(it)
             step = get_step(sh_deg, state.gauss.capacity)
             with profiling.annotate("train.step"):
@@ -591,7 +651,7 @@ class GaussianTrainer:
                 try:
                     b = gather_batch([int(train_idx[0])])
                     img = self._render_view(full(), b.viewmats[0], b.Ks[0], sh_deg, width,
-                                            height)
+                                            height, int(train_idx[0]))
                     side = np.concatenate([img.cpu().numpy(), b.images[0].cpu().numpy()],
                                           axis=1)
                     self.logger.log_image("train/render_vs_gt", side, step=it)
@@ -760,7 +820,8 @@ class GaussianTrainer:
 
     # ---- validation ----------------------------------------------------------
 
-    def _render_raw(self, params, masked_op, viewmat, K, sh_degree, width, height):
+    def _render_raw(self, params, masked_op, viewmat, K, sh_degree, width, height,
+                    offsets=None):
         cfg = self.config
         return render(params.means, params.quats, params.log_scales, masked_op,
                       params.sh_coeffs, viewmat, K, width, height, sh_degree=sh_degree,
@@ -770,17 +831,32 @@ class GaussianTrainer:
                       sort_buckets=cfg.sort_buckets, bucket_headroom=cfg.partition_headroom,
                       reduce_slices=cfg.reduce_slices, sort_bands=cfg.sort_bands,
                       rasterize_mode=cfg.rasterize_mode, depth_grad=False,
-                      device=self.device).render
+                      offsets=offsets, device=self.device).render
 
-    def _render_view(self, state, viewmat, K, sh_degree, width, height):
-        """One view of the state, clipped to [0, 1], without gradients."""
+    def _offsets(self, state, view: Optional[int]):
+        """The deformation's offsets of dataset view ``view`` at its time,
+        without gradients, or None for a static state (or before the
+        warm-up ends)."""
+        if (self._view_times is None or view is None or state.deform is None
+                or int(state.iteration) < self.config.deform_warmup):
+            return None
+        alive = state.gauss.alive
+        with torch.no_grad():
+            return deform_model.offsets(state.deform.params, state.deform.spec,
+                                        state.gauss.params.means,
+                                        torch.nonzero(alive).reshape(-1),
+                                        float(self._view_times[view]))
+
+    def _render_view(self, state, viewmat, K, sh_degree, width, height, view=None):
+        """One view of the state, clipped to [0, 1], without gradients; a
+        deforming state at dataset view ``view``'s time."""
         p = state.gauss.params
         with torch.no_grad():
             img = self._render_raw(p, p.masked_opacities(state.gauss.alive), viewmat, K,
-                                   sh_degree, width, height)
+                                   sh_degree, width, height, self._offsets(state, view))
         return torch.clamp(img, 0.0, 1.0)
 
-    def _align_pose(self, state, viewmat, K, gt, sh_degree, width, height):
+    def _align_pose(self, state, viewmat, K, gt, sh_degree, width, height, view=None):
         """Test-time pose alignment of one validation view: ``align_pose``
         with the learning rate decaying 30x over ``val_pose_align_steps`` and
         the config's Adam betas (JAX ``trainer.py:845``)."""
@@ -788,8 +864,10 @@ class GaussianTrainer:
         p = state.gauss.params
         params = GaussianParams(**{k: getattr(p, k).detach() for k in PARAM_KEYS})
         masked_op = params.masked_opacities(state.gauss.alive)
+        offsets = self._offsets(state, view)
         return align_pose(
-            lambda vm: self._render_raw(params, masked_op, vm, K, sh_degree, width, height),
+            lambda vm: self._render_raw(params, masked_op, vm, K, sh_degree, width, height,
+                                        offsets),
             viewmat, gt, cfg.val_pose_align_steps, cfg.val_pose_align_lr, lr_decay=1.0 / 30.0,
             b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps)
 
@@ -804,14 +882,15 @@ class GaussianTrainer:
         for i in val_idx:
             b = gather_batch([int(i)])
             gt = b.images[0]
-            img = self._render_view(state, b.viewmats[0], b.Ks[0], sh_degree, width, height)
+            img = self._render_view(state, b.viewmats[0], b.Ks[0], sh_degree, width, height,
+                                    int(i))
             l1s.append(float(torch.mean(torch.abs(img - gt))))
             ssims.append(float(ssim_fn(img, gt)))
             psnrs.append(float(psnr_fn(img, gt)))
             if cfg.val_pose_align_steps > 0:
                 vm = self._align_pose(state, b.viewmats[0], b.Ks[0], gt, sh_degree, width,
-                                      height)
-                img = self._render_view(state, vm, b.Ks[0], sh_degree, width, height)
+                                      height, int(i))
+                img = self._render_view(state, vm, b.Ks[0], sh_degree, width, height, int(i))
                 psnrs_aligned.append(float(psnr_fn(img, gt)))
             panels.append(np.concatenate([img.cpu().numpy(), gt.cpu().numpy()], axis=1))
         if panels and self.logger is not None:

@@ -180,6 +180,44 @@ def test_grad_buffer_probe_grows_the_fraction(rng, tmp_path):
     assert trainer.config.grad_buffer_frac == pytest.approx(0.02 * 1.35 ** 2)
 
 
+def test_class_budgets_cover_each_band_of_a_mesh(rng):
+    """On a mesh whose model axis splits the image into bands, each band is
+    binned with the class budgets: a footprint cut by the band edge falls
+    into a smaller class, so the budgets hold each band's class counts, not
+    only the whole image's."""
+    from types import SimpleNamespace
+
+    from gaussian_splatting_tpu_torch.ops.tiling import class_caps as t_caps
+    from gaussian_splatting_tpu_torch.training.optimizer import adam_init
+    from gaussian_splatting_tpu_torch.training.step import TrainState
+
+    _, ds, gt = _dataset(rng, n_views=3, width=64, height=64, n_gauss=40)
+    gauss = state_from_numpy({
+        "means": gt, "quats": np.tile([1.0, 0, 0, 0], (len(gt), 1)),
+        "log_scales": np.full((len(gt), 3), np.log(0.12)),
+        "logit_opacities": np.full((len(gt), 1), 2.0),
+        "features_dc": np.zeros((len(gt), 1, 3)), "features_rest": np.zeros((len(gt), 15, 3))},
+        device="cpu")
+    state = TrainState(gauss=gauss, opt=adam_init(gauss.params),
+                       iteration=torch.zeros((), dtype=torch.int32))
+    cfg = TConfig(tile_size=16)
+    one = t_trainer.GaussianTrainer(cfg, device="cpu")
+    mesh = SimpleNamespace(shape={"data": 1, "model": 2}, device=torch.device("cpu"), rank=0)
+    two = t_trainer.GaussianTrainer(cfg, device="cpu", mesh=mesh)
+    whole = one._measure_footprints(state, ds, cfg)
+    banded = two._measure_footprints(state, ds, cfg, bands=True)
+    assert len(banded) == 2 * len(whole)
+    assert two._measure_footprints(state, ds, cfg)[0].tolist() == whole[0].tolist()
+    for v, w in enumerate(whole):
+        top, bottom = banded[2 * v], banded[2 * v + 1]
+        assert top.sum() + bottom.sum() >= w.sum() and top.max() <= w.max()
+    caps = np.asarray(t_caps(16))
+    budgets = np.asarray(two._choose_class_budgets(state, ds, cfg, 16))
+    for nt in banded:
+        hist = np.bincount(np.searchsorted(caps, np.clip(nt, 1, 16)), minlength=len(caps))
+        assert (hist[:len(caps)] <= budgets).all()
+
+
 def test_mesh_raises_naming_the_roadmap_item(rng, tmp_path):
     """A mesh runs one process a device: in a process with no process group
     a 2x1 mesh raises before training, naming torchrun (the trainer on a

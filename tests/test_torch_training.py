@@ -43,6 +43,7 @@ from gaussian_splatting_tpu_torch.training.checkpoint import load_checkpoint, sa
 from gaussian_splatting_tpu_torch.training.config import TrainingConfig as TConfig
 from torch_parity import (
     PARAM_KEYS,
+    PORT_ONLY_FIELDS,
     jax_train_state,
     jax_train_state_arrays,
     to_jax,
@@ -96,13 +97,17 @@ def test_scale_ratio_reg_matches_jax(rng):
 
 def test_config_fields_have_the_jax_names_and_defaults():
     # The port keeps only the fields it reads; each means what it means in
-    # the JAX package.
+    # the JAX package; its own fields are listed, off by default.
     j_defaults = {f.name: f.default for f in dataclasses.fields(JConfig)}
     t_fields = dataclasses.fields(TConfig)
     assert len(t_fields) > 20
     for f in t_fields:
+        if f.name in PORT_ONLY_FIELDS:
+            assert f.name not in j_defaults, f.name
+            continue
         assert f.name in j_defaults, f.name
         assert f.default == j_defaults[f.name], f.name
+    assert TConfig().deform is False
 
 
 def test_adam_update_and_schedules_match_jax(rng):

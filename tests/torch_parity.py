@@ -49,6 +49,10 @@ def scene_3d(rng, n, sh_rest_scale=0.05):
 
 PARAM_KEYS = ("means", "quats", "log_scales", "logit_opacities", "features_dc",
               "features_rest")
+# Fields of the port's TrainingConfig the JAX package has no counterpart of:
+# Deformable 3D Gaussians (models/deform.py) exists in the port only.
+PORT_ONLY_FIELDS = (
+    "deform", "deform_warmup")
 
 
 def train_state_arrays(rng, n, n_views=0, moments=False, iteration=0):
