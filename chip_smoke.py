@@ -4,7 +4,7 @@ kernels against its plain PyTorch version.
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (any failure exits nonzero and prints no result):
-1. build the nine kernel sources in ``gaussian_splatting_tpu_torch/csrc/`` with
+1. build the ten kernel sources in ``gaussian_splatting_tpu_torch/csrc/`` with
    nvcc for sm_90a (one process per source, all at once) and print each
    kernel's registers and spills;
 2. the bench scene of ``bench.py`` (numpy seed 0, 1M screen-space
@@ -196,9 +196,21 @@ Phases (any failure exits nonzero and prints no result):
    instance; the deformation MLP (8 x 256) over 1M rows forward and
    forward + backward, its TFLOP/s, peak memory and the offsets' error with
    TF32 on.
+15. the binning's slot enumeration (``bin_slots_phase``, after phase 14;
+   alone: ``bin_slots_alone``), the kernel pair of ``csrc/bin_slots.cu`` at
+   the cells' shapes (``BIN_SLOTS_CASES``: 1M gaussians dense at max_t 16,
+   1920x1080; the 1.5M-slot buffer compact at max_t 32 with the deformable
+   cell's budgets; the 4.665M-slot buffer compact at 1297x840, max_t 8):
+   keys, gids and counters bit for bit against the plain version on the
+   card, then ``isect_and_sort`` in every mode (flat, bands 2 and 3,
+   buckets 8 and 64, depth_bits 16) through the pair and through the plain
+   version, every output bit for bit, two launches a view (2K with K
+   bands); each kernel's time beside its bytes bound and the plain chain's;
+   and through phases 4 and 5, the pair launched once a render and once a
+   training view.
 
 Output: the kernels JSON line (phase 13's numbers under ``project_sh``,
-phase 14's under ``project_sh.deform``;
+phase 14's under ``project_sh.deform``, phase 15's under ``bin_slots``;
 each row also with ``kernel_ms``, the kernel's profiler time,
 ``trainer_launches``, its launches in phase 8,
 ``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
@@ -329,7 +341,7 @@ SEGSUM_ATOL_FRAC = 1e-5
 # The raster kernels' alpha gate (raster_common.cuh::kAlphaSkip).
 ALPHA_SKIP = np.float32(1.0 / 255.0)
 KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
-           "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh")
+           "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh", "bin_slots")
 
 
 def log(msg):
@@ -381,12 +393,13 @@ def kernel_ms(fn, name, reps=10):
 
 
 def launch_counters():
-    """The launch counters of the eight kernels and of the projection + SH
-    pair's two (``utils/profiling``), by kernel name."""
+    """The launch counters of the eight kernels, of the projection + SH
+    pair's two and of the binning's slot pair (``utils/profiling``), by
+    kernel name."""
     return {k: f"launch.{k}" for k in ("pack_soa", "rasterize_fwd", "rasterize_bwd",
                                         "pack_rows", "segsum", "rasterize_fwd_q",
                                         "rasterize_bwd_q", "partition", "project_sh_fwd",
-                                        "project_sh_bwd")}
+                                        "project_sh_bwd", "bin_slots")}
 
 
 def reset_launches():
@@ -473,12 +486,13 @@ def dense_gid(sargs, depth_bits=0):
     ``depth_bits`` keys): the sorted slot -> gaussian index (M,) and its
     segment end ``tile_starts[T:]``, the ``n_live`` it passes to
     ``pack_soa``."""
-    from gaussian_splatting_tpu_torch.ops.tiling import binning_slots, sort_slots
+    from gaussian_splatting_tpu_torch.ops.tiling import binning_slots, slot_sort_key, sort_keys
 
     means2d, conics, _, opac, depths, radii = sargs
     tile_key, _, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT, TILE,
                                          MAX_T)
-    tile_starts, gid = sort_slots(tile_key, depths, T, depth_bits=depth_bits)
+    key, unit = slot_sort_key(tile_key, depths, T, depth_bits=depth_bits)
+    tile_starts, gid = sort_keys(key, unit, T, means2d.shape[0])
     return gid, tile_starts[T:]
 
 
@@ -989,7 +1003,7 @@ def compact_phase(dev, sargs, b, fwd_out, bw, tstate, views, images, tag="train 
     from gaussian_splatting_tpu_torch.ops.rasterize_cuda import bwd_tiles, fwd_tiles, grad_cap
     from gaussian_splatting_tpu_torch.ops.tiling import (
         BUCKET_C, binning_slots, isect_and_sort, pack_soa, pack_soa_plain, quantity_records,
-        reduce_padded_grads, sort_slots, total_slots)
+        reduce_padded_grads, slot_sort_key, sort_keys, total_slots)
 
     budgets = batch_class_budgets(dev, tstate, views, images)
     bc = isect_and_sort(*sargs, WIDTH, HEIGHT, TILE, CHUNK, MAX_T, class_budgets=budgets)
@@ -1007,7 +1021,8 @@ def compact_phase(dev, sargs, b, fwd_out, bw, tstate, views, images, tag="train 
     means2d, conics, colors, opac, depths, radii = sargs
     tile_key, slot_gid, _, _, T = binning_slots(means2d, conics, opac, radii, WIDTH, HEIGHT,
                                                 TILE, MAX_T, budgets)
-    starts, gid = sort_slots(tile_key, depths, T, slot_gid)
+    starts, gid = sort_keys(*slot_sort_key(tile_key, depths, T, slot_gid), T, N_GAUSSIANS,
+                            slot_gid)
     records = quantity_records(*sargs[:5])
     k_soa = pack_soa(records, gid, 2 * CHUNK, starts[T:])
     exact = (torch.equal(k_soa, pack_soa_plain(records, gid, 2 * CHUNK, starts[T:]))
@@ -2903,6 +2918,179 @@ def project_sh_alone():
     print(json.dumps(rep), flush=True)
 
 
+# Phase 15, the binning's slot enumeration (csrc/bin_slots.cu) at the
+# benchmark cells' shapes: (case, buffer slots, width, height, max_t, class
+# budgets; None bins the dense layout). The viewer's 1M live gaussians bin
+# dense at max_t 16 (16M slots); the deformable cell's 1.5M-slot buffer (a
+# third dead) and the 3.11M cell's 4.665M-slot one bin compact with those
+# cells' logged budgets. Each case also runs every other mode of
+# isect_and_sort (BIN_SLOTS_MODES) on its layout.
+BIN_SLOTS_CASES = (
+    ("render-video1080p-1m", 1_000_000, 1920, 1080, 16, None),
+    ("train-deform3dgs-1080p-1m-b1", 1_500_000, 1920, 1080, 32,
+     (18304, 75264, 2560, 269696, 107264, 2304, 118016, 22656, 11392, 23040)),
+    ("train-mipnerf360-3m-b1", 4_665_000, 1297, 840, 8,
+     (315136, 707328, 3712, 817664, 96512, 73472)),
+)
+BIN_SLOTS_MODES = (("flat", {}), ("bands2", {"sort_bands": 2}), ("bands3", {"sort_bands": 3}),
+                   ("buckets8", {"sort_buckets": 8}), ("buckets64", {"sort_buckets": 64}),
+                   ("depth_bits16", {"depth_bits": 16}))
+
+
+def _bin_slots_inputs(dev, n, w, h, dead_third):
+    """Screen-space inputs ``(means2d, conics, colors, opacities, depths,
+    radii)`` of a seeded ``scene_3d`` of ``n`` slots (the last third dead
+    with ``dead_third``) projected by the kernel pair at ``w`` x ``h`` from
+    the first view."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops.project_sh import project_shade
+
+    ins, (viewmat, K, _, _) = _project_sh_inputs(dev, n, w, h)
+    if not dead_third:
+        ins[3] = torch.as_tensor(scene_3d(n, seed=13)["logit_opacities"][:, 0], device=dev)
+    with torch.no_grad():
+        proj, colors, opac = project_shade(*ins, viewmat, K, w, h, sh_degree=3)
+    return (proj.means2d, proj.conics, colors, opac, proj.depths, proj.radii)
+
+
+def bin_slots_phase(dev):
+    """Phase 15: the kernel pair of ``tiling.bin_slots`` against its plain
+    version on the card at each of ``BIN_SLOTS_CASES``: keys, gids and the
+    three counters bit for bit (exact key and int32 tile), then
+    ``isect_and_sort`` through the pair and through the plain version in
+    every mode of ``BIN_SLOTS_MODES`` (tile_starts, counts, SoA and
+    counters bit for bit, two launches a view, 2K with K bands); the times
+    of each kernel alone (profiler) beside its bytes bound, of the pair and
+    of the plain chain it replaces (CUDA events), and of a whole binning
+    both ways. Fails after the last case if any missed a gate."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops import tiling
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    kernel_bin_slots = tiling.bin_slots
+    rep, missed = {}, []
+    for cell, n, w, h, max_t, budgets in BIN_SLOTS_CASES:
+        sargs = _bin_slots_inputs(dev, n, w, h, dead_third=budgets is not None)
+        means2d, conics, colors, opac, depths, radii = sargs
+        geo = (means2d, conics, opac, radii, depths)
+        r = {"slots": tiling.total_slots(n, max_t, budgets), "max_t": max_t,
+             "budgets": budgets, "modes": {}}
+        for depth_bits in (None, 0):
+            k = tiling.bin_slots(*geo, w, h, TILE, max_t, budgets, depth_bits=depth_bits)
+            p = tiling.bin_slots_plain(*geo, w, h, TILE, max_t, budgets, depth_bits=depth_bits)
+            got = {f: int(getattr(k, f)) for f in ("n_isect", "n_dropped", "n_budget_dropped")}
+            want = {f: int(getattr(p, f)) for f in got}
+            same = {"key": torch.equal(k.key, p.key), "counters": got == want,
+                    "gid": (k.slot_gid is None and p.slot_gid is None)
+                    or torch.equal(k.slot_gid, p.slot_gid)}
+            tag = "exact" if depth_bits is None else "tile"
+            r[f"slots_{tag}"] = dict(same, **got)
+            if not all(same.values()):
+                diff = int((k.key != p.key).sum()) if k.key.shape == p.key.shape else -1
+                missed.append(f"{cell} {tag}: {same}, keys differing {diff}, {got} vs {want}")
+            del k, p
+        for mode, kw in BIN_SLOTS_MODES:
+            K = kw.get("sort_bands", 1)
+            profiling.reset_counters("launch.bin_slots")
+            kb = tiling.isect_and_sort(*sargs, w, h, TILE, CHUNK, max_t, class_budgets=budgets,
+                                       **kw)
+            launches = profiling.counters().get("launch.bin_slots", 0)
+            tiling.bin_slots = tiling.bin_slots_plain
+            try:
+                pb = tiling.isect_and_sort(*sargs, w, h, TILE, CHUNK, max_t,
+                                           class_budgets=budgets, **kw)
+            finally:
+                tiling.bin_slots = kernel_bin_slots
+            same = {f: torch.equal(getattr(kb, f), getattr(pb, f))
+                    for f in tiling.TileBinning._fields}
+            r["modes"][mode] = {"equal": all(same.values()), "launches": launches,
+                                "n_isect": int(kb.n_isect)}
+            if not all(same.values()) or launches != 2 * K:
+                missed.append(f"{cell} {mode}: fields equal {same}, launches {launches} "
+                              f"(want {2 * K})")
+            del kb, pb
+        # Times: each kernel alone, the pair, the plain chain, a whole binning.
+        M = r["slots"]
+        cols = n if budgets is None else sum(budgets)
+        gid_b = 0 if budgets is None else 4
+        perm_b = 0 if budgets is None else 8
+        rects_bytes = n * (32 + 48 + (1 if budgets is not None else 0))
+        slots_bytes = M * (8 + gid_b) + cols * (48 + perm_b)
+        pair = lambda: tiling.bin_slots(*geo, w, h, TILE, max_t, budgets)  # noqa: E731
+        plain = lambda: tiling.bin_slots_plain(*geo, w, h, TILE, max_t, budgets)  # noqa: E731
+        whole = lambda: tiling.isect_and_sort(*sargs, w, h, TILE, CHUNK, max_t,  # noqa: E731
+                                              class_budgets=budgets)
+
+        def whole_plain():
+            tiling.bin_slots = tiling.bin_slots_plain
+            try:
+                return whole()
+            finally:
+                tiling.bin_slots = kernel_bin_slots
+        turns = in_turns({"pair": pair, "plain": plain}, reps=5)
+        whole_turns = in_turns({"kernels": whole, "plain": whole_plain}, reps=5)
+        r.update(
+            rects_kernel_ms=kernel_ms(pair, "bin_rects_kernel"),
+            slots_kernel_ms=kernel_ms(pair, "bin_slots_kernel"),
+            rects_bound_ms=rects_bytes / HBM_BYTES_PER_S * 1e3,
+            slots_bound_ms=slots_bytes / HBM_BYTES_PER_S * 1e3,
+            pair_ms=statistics.median(turns["pair"]), plain_ms=statistics.median(turns["plain"]),
+            binning_ms=statistics.median(whole_turns["kernels"]),
+            binning_plain_ms=statistics.median(whole_turns["plain"]),
+            binning_peak_gib=peak_gib(whole), binning_plain_peak_gib=peak_gib(whole_plain))
+        r["slots_within_3x_bound"] = r["slots_kernel_ms"] <= 3 * r["slots_bound_ms"]
+        log(f"[bin_slots] {cell} ({'dense' if budgets is None else 'compact'}, {M} slots, "
+            f"n_isect {r['slots_exact']['n_isect']}, dropped {r['slots_exact']['n_dropped']}, "
+            f"budget-dropped {r['slots_exact']['n_budget_dropped']}): "
+            f"{json.dumps({k: v for k, v in r.items() if k not in ('budgets',)})}")
+        rep[cell] = r
+        del sargs, geo, means2d, conics, colors, opac, depths, radii
+        torch.cuda.empty_cache()
+    if missed:
+        fail(f"[bin_slots] the pair missed its gates: {missed}")
+    return rep
+
+
+def bin_slots_launches(render_launches, train_launches, n_renders, n_views):
+    """The pair's launches through ``render_single`` and the training step:
+    two a view (the gaussian pass and the slot pass)."""
+    got = {"render": render_launches["bin_slots"], "train": train_launches["bin_slots"]}
+    log(f"[bin_slots] launches: {n_renders} renders {got['render']}, {n_views} training views "
+        f"{got['train']}")
+    if got != {"render": 2 * n_renders, "train": 2 * n_views}:
+        fail(f"[bin_slots] the render or training path did not run the pair once a view: {got}")
+    return got
+
+
+def bin_slots_alone():
+    """Phase 15 alone, with the render and training phases it counts the
+    pair's launches in: ``python -c "import chip_smoke;
+    chip_smoke.bin_slots_alone()"`` from the repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    for line in _build.build_log("bin_slots").splitlines():
+        if "Compiling entry function" in line or "Used" in line or "spill" in line:
+            log(f"[build] bin_slots: {line.strip()}")
+    dev = torch.device("cuda")
+    rep = {"bin_slots": bin_slots_phase(dev)}
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    _, images, render_launches = render_phase(dev, state_from_numpy(scene, device=dev), views)
+    launches = train_phase(dev, scene, views, images)[4]
+    rep["launches"] = bin_slots_launches(render_launches, launches, len(views),
+                                         TRAIN_STEPS * len(views))
+    print(json.dumps(rep), flush=True)
+
+
 def _cli_call(main, argv, records):
     """``main(argv)`` of a CLI with its standard output kept off this
     script's (the eval CLI prints a JSON summary line); returns the exit
@@ -3714,6 +3902,8 @@ def run(dev):
     step, tstate, batch, step_ms, launches = train_phase(dev, scene, views, images)
     psh_launches = project_sh_launches(render_launches, launches, len(views),
                                        TRAIN_STEPS * images.shape[0])
+    bsl_launches = bin_slots_launches(render_launches, launches, len(views),
+                                      TRAIN_STEPS * images.shape[0])
 
     # 6. Timings at the main paths' shapes, CUDA events, medians.
     render_ms = [cuda_ms(lambda vp=vp: raster.render_single(state.params, vp),
@@ -4075,6 +4265,8 @@ def run(dev):
     psh = project_sh_phase(dev)
     # 14. Its deforming instance and the deformation MLP.
     psh["deform"] = deform_phase(dev)
+    # 15. The binning's slot enumeration at the cells' shapes.
+    bsl = bin_slots_phase(dev)
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
@@ -4122,7 +4314,8 @@ def run(dev):
         return {"bound_ms": max(bytes_ms, needed_ops_ms), "bound_by": by(bytes_ms, needed_ops_ms),
                 "bound_unculled_ms": max(bytes_ms, unculled_ops_ms)}
 
-    return {"project_sh": dict(psh, launches=psh_launches), "kernels": [
+    return {"project_sh": dict(psh, launches=psh_launches),
+            "bin_slots": dict(bsl, launches=bsl_launches), "kernels": [
         row("pack_soa", "pack_soa.cu", "gaussian_splatting_tpu/ops/tiling.py:335",
             pack_err, pack_ms, pack_plain_ms, pack_bound, "bytes", pack_lib_ms),
         row("rasterize_fwd", "rasterize_fwd.cu",

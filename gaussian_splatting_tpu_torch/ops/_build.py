@@ -27,10 +27,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
-# Flags one source adds to NVCC_FLAGS. project_sh's radii decide the binning
-# and must equal those of the plain PyTorch arithmetic, which rounds every
-# product and every sum: no multiply-add contraction there.
-SOURCE_FLAGS = {"project_sh": ("-fmad=false",)}
+# Flags one source adds to NVCC_FLAGS. project_sh's radii and bin_slots'
+# tiles decide the binning and must equal those of the plain PyTorch
+# arithmetic, which rounds every product and every sum: no multiply-add
+# contraction there.
+SOURCE_FLAGS = {"project_sh": ("-fmad=false",), "bin_slots": ("-fmad=false",)}
 
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 # Host C++ for the machine's baseline ISA: a library built here may be loaded

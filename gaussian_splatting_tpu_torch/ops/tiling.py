@@ -8,7 +8,7 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
    tile of its sheared window, or the sentinel T when the tile cap, the
    window or the exact ellipse/tile cull (the 1/255 alpha gate) rules it
    out. Gaussians with opacity below 1/255 are culled exactly. Two slot
-   layouts (``binning_slots``):
+   layouts (``binning_slots``, the plain version of ``bin_slots``):
    - dense: every gaussian owns ``max_t`` slots laid out (max_t, N), slot
      ``s * N + g`` holding slot s of gaussian g;
    - compact (``class_budgets``, ``compact_slots``): gaussians are grouped
@@ -18,11 +18,15 @@ Pipeline, for N screen-space gaussians and ``max_t`` slots each:
      the sort holds ``total_slots`` slots instead of N * max_t. The tiles
      of gaussians past their class's budget are counted in
      ``n_budget_dropped``. Each slot's gaussian is kept in an (M,) array.
+   On CUDA tensors ``bin_slots`` runs the kernel pair of
+   ``csrc/bin_slots.cu`` instead, one pass over the gaussians and one over
+   the slots, and writes each slot's sort key (and on the compact layout
+   its gaussian) straight out, bit for bit the plain code's.
 2. One stable ``torch.sort`` of the int64 key ``(tile << 32) | depth bits``
    (depth bits in float total order, so ties resolve as ``lax.sort`` over
    the same slot layout resolves them); sentinel slots sink to the end.
    ``depth_bits = b > 0`` sorts the int32 key ``tile * 2^b + quantized
-   depth`` instead (``sort_slots``): depths quantized to 2^b - 1 levels
+   depth`` instead (``slot_sort_key``): depths quantized to 2^b - 1 levels
    over the real slots' range, so only the blend order of nearly equal
    depths changes.
 3. ``searchsorted`` gives the per-tile segment starts and counts.
@@ -500,6 +504,136 @@ def binning_slots(means2d, conics, opacities, radii, width: int, height: int, ti
     return tile_key, None, n_dropped, torch.zeros_like(n_dropped), T
 
 
+class Slots(NamedTuple):
+    """The binning's slots (``bin_slots``)."""
+    key: torch.Tensor                 # (M,) int64 exact sort key, or int32 tile (T: sentinel)
+    slot_gid: Optional[torch.Tensor]  # (M,) int32 gaussian of each slot; None dense (slot % N)
+    n_isect: torch.Tensor             # () int64 slots with a tile
+    n_dropped: torch.Tensor           # () int64 tiles lost to the max_t cap
+    n_budget_dropped: torch.Tensor    # () int64 tiles lost to the class budgets (0 dense)
+    T: int
+
+
+def bin_slots_plain(means2d, conics, opacities, radii, depths, width: int, height: int,
+                    tile_size: int, max_t: int, class_budgets=None, row_lo: int = 0,
+                    row_hi: Optional[int] = None, depth_bits: Optional[int] = None) -> Slots:
+    """Plain PyTorch version of the ``bin_slots`` kernel pair (arguments as
+    there): ``binning_slots``, the real slots counted, and the exact key of
+    ``slot_sort_key`` unless ``depth_bits`` asks for the int32 tile."""
+    tile_key, slot_gid, n_dropped, n_budget_dropped, T = binning_slots(
+        means2d, conics, opacities, radii, width, height, tile_size, max_t, class_budgets,
+        row_lo, row_hi)
+    n_isect = torch.sum(tile_key < T)
+    key = tile_key if depth_bits is not None else slot_sort_key(tile_key, depths, T,
+                                                                slot_gid)[0]
+    return Slots(key, slot_gid, n_isect, n_dropped.to(n_isect.dtype),
+                 n_budget_dropped.to(n_isect.dtype), T)
+
+
+def _check_bin_slots_args(means2d, conics, opacities, radii, depths, T, max_t,
+                          class_budgets, depth_bits):
+    n = means2d.shape[0]
+    for name, x, shape, dtype in (("means2d", means2d, (n, 2), torch.float32),
+                                  ("conics", conics, (n, 3), torch.float32),
+                                  ("opacities", opacities, (n,), torch.float32),
+                                  ("radii", radii, (n,), torch.int32),
+                                  ("depths", depths, (n,), torch.float32)):
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
+        if x.device != means2d.device:
+            raise ValueError(f"{name} is on {x.device}, means2d on {means2d.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n >= (1 << 24):
+        raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
+    if class_budgets is not None:
+        total_slots(n, max_t, class_budgets)
+        if min(int(b) for b in class_budgets) < 0:
+            raise ValueError("class budgets must be non-negative")
+    if depth_bits is not None and not (T + 1) < (1 << (31 - int(depth_bits))):
+        raise ValueError(f"tile grid of {T} tiles too large for a {depth_bits}-bit depth in "
+                         f"an int32 sort key")
+
+
+def bin_slots(means2d, conics, opacities, radii, depths, width: int, height: int,
+              tile_size: int, max_t: int, class_budgets=None, row_lo: int = 0,
+              row_hi: Optional[int] = None, depth_bits: Optional[int] = None) -> Slots:
+    """The binning's slots with their sort key, on the layout and in the
+    band ``binning_slots`` takes: ``Slots(key, slot_gid, n_isect,
+    n_dropped, n_budget_dropped, T)``. ``depth_bits`` None writes the flat
+    path's exact int64 key ``(tile << 32) | order_bits(depth)``; an int b
+    writes each slot's int32 tile, for the bucket partition (b = 0) or the
+    b-bit quantized key (``slot_sort_key``), and needs (T + 1) < 2^(31 - b).
+    means2d (N, 2), conics (N, 3), opacities, depths (N,) float32 and
+    radii (N,) int32, contiguous, on one device. CUDA tensors run the
+    kernel pair (``csrc/bin_slots.cu``), bit for bit the plain version's
+    outputs; CPU tensors the plain version."""
+    ntx, nty = cdiv(width, tile_size), cdiv(height, tile_size)
+    _check_bin_slots_args(means2d, conics, opacities, radii, depths, ntx * nty, max_t,
+                          class_budgets, depth_bits)
+    args = (means2d, conics, opacities, radii, depths, width, height, tile_size, max_t,
+            class_budgets, row_lo, row_hi, depth_bits)
+    if means2d.device.type == "cpu":
+        return bin_slots_plain(*args)
+    if means2d.device.type != "cuda":
+        raise ValueError(f"bin_slots runs on CUDA or CPU tensors, not {means2d.device}")
+    return _bin_slots_cuda(*args)
+
+
+def _bin_slots_cuda(means2d, conics, opacities, radii, depths, width, height, ts, max_t,
+                    class_budgets, row_lo, row_hi, depth_bits) -> Slots:
+    """``bin_slots`` on the card: ``gs_bin_rects``, on the compact layout
+    the stable class order (one ``torch.sort`` of the (N,) uint8 classes),
+    then ``gs_bin_slots``; the three counters are views of the kernels'
+    int64 stats."""
+    lib = _build.load("bin_slots")
+    lib.gs_bin_rects.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p] * 4 + [ctypes.c_void_p])
+    lib.gs_bin_slots.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+    lib.gs_bin_rects.restype = lib.gs_bin_slots.restype = ctypes.c_int
+    dev = means2d.device
+    N = means2d.shape[0]
+    ntx, nty = cdiv(width, ts), cdiv(height, ts)
+    T = ntx * nty
+    row_hi = nty if row_hi is None else row_hi
+    caps = () if class_budgets is None else class_caps(max_t)
+    budgets = () if class_budgets is None else tuple(int(b) for b in class_budgets)
+    L = len(caps)
+    if L > 32:
+        raise ValueError(f"the kernel takes at most 32 footprint classes, max_t={max_t} has {L}")
+    caps_c = (ctypes.c_int * max(L, 1))(*caps)
+    budgets_c = (ctypes.c_longlong * max(L, 1))(*budgets)
+    stats = torch.empty((4 + L,), dtype=torch.int64, device=dev)
+    rect = torch.empty((N, 12), dtype=torch.int32, device=dev)
+    cls = torch.empty((N,), dtype=torch.uint8, device=dev) if L else None
+    M = total_slots(N, max_t, class_budgets)
+    key = torch.empty((M,), dtype=torch.int64 if depth_bits is None else torch.int32,
+                      device=dev)
+    slot_gid = torch.empty((M,), dtype=torch.int32, device=dev) if L else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gs_bin_rects(N, means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
+                              radii.data_ptr(), depths.data_ptr(), ntx, ts, row_lo, row_hi,
+                              max_t, L, caps_c, rect.data_ptr(),
+                              None if cls is None else cls.data_ptr(), stats.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"bin_slots gaussian pass launch failed: cudaError {rc}")
+        profiling.count("launch.bin_slots")
+        perm = torch.sort(cls, stable=True)[1] if L else None
+        rc = lib.gs_bin_slots(N, rect.data_ptr(), None if perm is None else perm.data_ptr(),
+                              max_t, L, caps_c, budgets_c, ntx, ts, T,
+                              int(depth_bits is None), key.data_ptr(),
+                              None if slot_gid is None else slot_gid.data_ptr(),
+                              stats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"bin_slots slot pass launch failed: cudaError {rc}")
+    profiling.count("launch.bin_slots")
+    return Slots(key, slot_gid, stats[1], stats[0], stats[2], T)
+
+
 def slot_sort_key(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
                   slot_gid: Optional[torch.Tensor] = None, depth_bits: int = 0):
     """The binning's sort key of the slots (``binning_slots``) and the key
@@ -537,22 +671,23 @@ def slot_sort_key(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
     return tile_key * (1 << depth_bits) + torch.where(real, qd, 0), 1 << depth_bits
 
 
-def sort_slots(tile_key: torch.Tensor, depths: torch.Tensor, T: int,
-               slot_gid: Optional[torch.Tensor] = None, depth_bits: int = 0,
-               tiles: Optional[Tuple[int, int]] = None):
-    """The binning's sort of the slots: one stable ``torch.sort`` of
-    ``slot_sort_key``. Returns ``(tile_starts, gid (M,) int32)``: the
-    segment starts of the tiles in ``tiles = (t0, t1)`` and of t1, ``(t1 -
-    t0 + 1,)`` int32 (all T tiles and ``tile_starts[T]`` = n_isect by
-    default), and the gaussian of each sorted slot."""
+def sort_keys(key: torch.Tensor, unit: int, T: int, n: int,
+              slot_gid: Optional[torch.Tensor] = None,
+              tiles: Optional[Tuple[int, int]] = None):
+    """The binning's sort of the slots' keys (``slot_sort_key``, or
+    ``bin_slots``' exact key with unit 2^32): one stable ``torch.sort``.
+    Returns ``(tile_starts, gid (M,) int32)``: the segment starts of the
+    tiles in ``tiles = (t0, t1)`` and of t1, ``(t1 - t0 + 1,)`` int32 (all T
+    tiles and ``tile_starts[T]`` = n_isect by default), and the gaussian of
+    each sorted slot, ``slot_gid`` of it or, with ``slot_gid`` None, the
+    slot mod ``n``."""
     t0, t1 = (0, T) if tiles is None else tiles
-    key, unit = slot_sort_key(tile_key, depths, T, slot_gid, depth_bits)
     key_sorted, order = torch.sort(key, stable=True)
     # A key is >= t * unit exactly when its tile is >= t: no pass over the
     # keys to extract their tiles.
     query = torch.arange(t0, t1 + 1, dtype=key.dtype, device=key.device) * unit
     tile_starts = torch.searchsorted(key_sorted, query).to(torch.int32)
-    gid = torch.remainder(order, depths.shape[0]) if slot_gid is None else slot_gid[order]
+    gid = torch.remainder(order, n) if slot_gid is None else slot_gid[order]
     return tile_starts, gid.to(torch.int32)
 
 
@@ -583,7 +718,7 @@ def isect_and_sort(
     whose overflow is counted in ``n_budget_dropped``.
 
     ``depth_bits = b > 0`` sorts one int32 key with the depth quantized to
-    b bits (``sort_slots``); the exact (tile, depth) order stays on the
+    b bits (``slot_sort_key``); the exact (tile, depth) order stays on the
     bucket and band paths, which ignore it, as the JAX package does.
 
     ``sort_buckets = B > 0`` (a power of two) sorts through the bucket
@@ -599,33 +734,36 @@ def isect_and_sort(
         raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
     max_t = max_tiles_per_gaussian
     records = quantity_records(means2d, conics, colors, opacities, depths)
+    geometry = tuple(x.contiguous() for x in (means2d, conics, opacities, radii, depths))
     if sort_bands > 1:
         if sort_buckets:
             raise ValueError("sort_bands and sort_buckets are exclusive")
-        return _band_binned(means2d, conics, opacities, depths, radii, records, width, height,
-                            tile_size, chunk, max_t, class_budgets, int(sort_bands))
+        return _band_binned(geometry, records, width, height, tile_size, chunk, max_t,
+                            class_budgets, int(sort_bands))
 
-    tile_key, slot_gid, n_dropped, n_budget_dropped, T = binning_slots(
-        means2d, conics, opacities, radii, width, height, tile_size, max_t, class_budgets)
-    n_isect = torch.sum(tile_key < T)
-    n_dropped = n_dropped.to(n_isect.dtype)
-    n_budget_dropped = n_budget_dropped.to(n_isect.dtype)
+    # The exact int64 key on the flat path; the int32 tile for the bucket
+    # partition and for the depth_bits key.
+    key_bits = 0 if sort_buckets else (int(depth_bits) or None)
+    sl = bin_slots(*geometry, width, height, tile_size, max_t, class_budgets,
+                   depth_bits=key_bits)
+    T = sl.T
     if sort_buckets:
-        return _bucket_binned(tile_key, slot_gid, depths, records, T, chunk,
-                              int(sort_buckets), float(bucket_headroom), n_isect, n_dropped,
-                              n_budget_dropped)
+        return _bucket_binned(sl.key, sl.slot_gid, depths, records, T, chunk,
+                              int(sort_buckets), float(bucket_headroom), sl.n_isect,
+                              sl.n_dropped, sl.n_budget_dropped)
 
-    tile_starts, gid = sort_slots(tile_key, depths, T, slot_gid, int(depth_bits))
+    key, unit = ((sl.key, 1 << 32) if key_bits is None
+                 else slot_sort_key(sl.key, depths, T, sl.slot_gid, key_bits))
+    tile_starts, gid = sort_keys(key, unit, T, N, sl.slot_gid)
     counts = tile_starts[1:] - tile_starts[:-1]
     soa = pack_soa(records, gid, pad=2 * chunk, n_live=tile_starts[T:])
     return TileBinning(sorted_soa=soa, tile_starts=tile_starts, counts=counts,
-                       n_isect=n_isect, n_dropped=n_dropped,
-                       n_budget_dropped=n_budget_dropped,
-                       n_bucket_dropped=torch.zeros_like(n_isect))
+                       n_isect=sl.n_isect, n_dropped=sl.n_dropped,
+                       n_budget_dropped=sl.n_budget_dropped,
+                       n_bucket_dropped=torch.zeros_like(sl.n_isect))
 
 
-def _band_binned(means2d, conics, opacities, depths, radii, records, width, height, ts,
-                 chunk, max_t, class_budgets, K):
+def _band_binned(geometry, records, width, height, ts, chunk, max_t, class_budgets, K):
     """Band-split binning (``tiling.py:704-784`` of the JAX package): K
     bands of ``cdiv(nty, K)`` tile rows, each enumerated (footprints
     clipped to its rows, the tile cap and the shared class budgets applied
@@ -637,11 +775,13 @@ def _band_binned(means2d, conics, opacities, depths, radii, records, width, heig
     counters are summed over the bands, and ``pack_soa`` runs once over the
     concatenated gid with no ``n_live``. A band past the last tile row
     (K > nty, or K not dividing nty) holds no tile: its M slots are all
-    sentinels and are neither enumerated nor sorted."""
+    sentinels and are neither enumerated nor sorted. ``geometry`` is
+    ``bin_slots``' (means2d, conics, opacities, radii, depths)."""
     ntx, nty = cdiv(width, ts), cdiv(height, ts)
     T = ntx * nty
-    dev = means2d.device
-    M = total_slots(means2d.shape[0], max_t, class_budgets)
+    N = geometry[0].shape[0]
+    dev = geometry[0].device
+    M = total_slots(N, max_t, class_budgets)
     if K * M >= (1 << 31):
         raise ValueError(f"{K} bands of {M} slots overflow the int32 segment starts")
     band_h = cdiv(nty, K)
@@ -653,14 +793,13 @@ def _band_binned(means2d, conics, opacities, depths, radii, records, width, heig
         if lo == hi:
             gids.append(torch.zeros((M,), dtype=torch.int32, device=dev))
             continue
-        tile_key, slot_gid, nd, nbd, _ = binning_slots(
-            means2d, conics, opacities, radii, width, height, ts, max_t, class_budgets,
-            row_lo=lo, row_hi=hi)
-        n_isect = n_isect + torch.sum(tile_key < T)
-        n_dropped = n_dropped + nd
-        n_budget_dropped = n_budget_dropped + nbd
-        ss, gid = sort_slots(tile_key, depths, T, slot_gid, tiles=(lo * ntx, hi * ntx))
-        del tile_key, slot_gid
+        sl = bin_slots(*geometry, width, height, ts, max_t, class_budgets, row_lo=lo,
+                       row_hi=hi)
+        n_isect = n_isect + sl.n_isect
+        n_dropped = n_dropped + sl.n_dropped
+        n_budget_dropped = n_budget_dropped + sl.n_budget_dropped
+        ss, gid = sort_keys(sl.key, 1 << 32, T, N, sl.slot_gid, tiles=(lo * ntx, hi * ntx))
+        del sl
         starts.append(ss[:-1] + k * M)
         counts.append(ss[1:] - ss[:-1])
         gids.append(gid)
