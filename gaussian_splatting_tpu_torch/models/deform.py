@@ -18,10 +18,10 @@ The network is a dict of tensors under the published module's names
 ``torch.nn.Linear`` initialises from a seeded generator. Its GEMMs are
 float32 (PyTorch's default; TF32 changes the offsets at the 1e-3 level).
 The three heads run as one (W, 10) GEMM. ``DeformState`` holds the network
-and its Adam moments; the training step shares the gaussians' Adam step
-counter (``training/step.py``). Spans: ``deform.mlp`` (the forward a view)
-and ``deform.mlp.bwd`` (its backward); counter ``deform.rows`` (the rows
-through the MLP a view).
+and its Adam moments; the training step updates it with the gaussians'
+Adam step counter (``training/step.py``). Spans: ``deform.mlp`` (the
+forward a view) and ``deform.mlp.bwd`` (its backward); counter
+``deform.rows`` (the rows through the MLP a view).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
+from gaussian_splatting_tpu_torch.training.optimizer import exp_lr_decay
 from gaussian_splatting_tpu_torch.utils import profiling
 
 HEADS = (("gaussian_warp", 3), ("gaussian_rotation", 4), ("gaussian_scaling", 3))
@@ -180,9 +181,8 @@ def deform_state_init(spec: DeformSpec, seed: int = 0, device: DeviceLike = None
 def lr_schedule(config, iteration: torch.Tensor) -> torch.Tensor:
     """The published rate: exponential decay from LR_SCALE x the position
     rate's start to the position rate's end over LR_MAX_STEPS."""
-    init, final = LR_SCALE * config.position_lr_init, config.position_lr_final
-    progress = torch.clamp_max(iteration.to(torch.float32) / float(LR_MAX_STEPS), 1.0)
-    return init * torch.pow(torch.full_like(progress, final / init), progress)
+    return exp_lr_decay(iteration, LR_SCALE * config.position_lr_init,
+                        config.position_lr_final, LR_MAX_STEPS)
 
 
 def time_noise_scale(iteration: int, n_frames: int) -> float:
@@ -192,19 +192,6 @@ def time_noise_scale(iteration: int, n_frames: int) -> float:
     if iteration >= TIME_NOISE_STEPS:
         return 0.0
     return TIME_NOISE * (1.0 - iteration / float(TIME_NOISE_STEPS)) / max(n_frames, 1)
-
-
-@torch.no_grad()
-def adam_update(state: DeformState, grads: Dict[str, torch.Tensor], lr, c1, c2,
-                b1: float, b2: float, eps: float) -> None:
-    """One Adam step of the network in place, with the bias corrections
-    ``c1``, ``c2`` of the shared step counter."""
-    for k, p in state.params.items():
-        g = grads[k]
-        m, v = state.mu[k], state.nu[k]
-        m.mul_(b1).add_((1.0 - b1) * g)
-        v.mul_(b2).add_((1.0 - b2) * g * g)
-        p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + eps))
 
 
 _SPEC_FIELDS = ("depth", "width", "skip", "multires_x", "multires_t")

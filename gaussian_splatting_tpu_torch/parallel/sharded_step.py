@@ -22,7 +22,8 @@ over ``data``; the pose state and the counters are replicated
    a reduce-scatter over ``model``, so per-gaussian gradients come back
    already sharded; an all-reduce over ``data`` of the shard gradients and
    one over the world of the pose gradient complete the global gradient.
-   Adam then runs shard-local, the pose Adam replicated.
+   The single-device step's update (``training/step.py::apply_gradients``)
+   then runs shard-local, the pose Adam replicated.
 
 Every rank issues the same collectives in the same order (one gather and,
 with M > 1, one halo exchange a view, in view order, whatever the band
@@ -41,7 +42,6 @@ import torch
 import torch.distributed as dist
 
 from gaussian_splatting_tpu_torch.core.se3 import apply_pose_delta
-from gaussian_splatting_tpu_torch.models.densify import clamp_scales
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
     GaussianParams,
@@ -51,18 +51,13 @@ from gaussian_splatting_tpu_torch.ops.render import project_and_shade, resolve_b
 from gaussian_splatting_tpu_torch.ops.rasterize_ref import rasterize_reference
 from gaussian_splatting_tpu_torch.ops.tiling import cdiv
 from gaussian_splatting_tpu_torch.training.loss import scale_ratio_reg, ssim_map, stclamp
-from gaussian_splatting_tpu_torch.training.optimizer import (
-    AdamState,
-    adam_bias_corrections,
-    adam_update,
-    group_lrs,
-    xyz_lr_schedule,
-)
+from gaussian_splatting_tpu_torch.training.optimizer import AdamState
 from gaussian_splatting_tpu_torch.training.step import (
     STAT_KEYS,
     TrainState,
     ViewBatch,
-    pose_lr_schedule,
+    apply_gradients,
+    leaf_grad,
 )
 
 _STATE_KEYS = ("alive", "xyz_grad_accum", "xyz_grad_count", "max_radii2d")
@@ -367,6 +362,13 @@ def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: in
                 stats = stats + torch.stack([st[k] for k in STAT_KEYS])
         return partial, sums, stats, radii_max
 
+    def mesh_grad_norms(grads: GaussianParams) -> dict:
+        """Global gradient norms: the shards' squared sums over "model"."""
+        sq = torch.stack([torch.sum(getattr(grads, k) ** 2) for k in PARAM_KEYS])
+        if M > 1:
+            sq = _all_reduce(sq, mesh, "model")
+        return {f"grad_norm/{k}": v for k, v in zip(PARAM_KEYS, torch.sqrt(sq).unbind())}
+
     def step(state: TrainState, batch: ViewBatch):
         B = batch.images.shape[0]
         if B % D != 0:
@@ -388,8 +390,7 @@ def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: in
             view_idx)
         n_px = float(B * height * width * 3)
         (partial / n_px).backward()
-        grads = [getattr(leaves, k).grad if getattr(leaves, k).grad is not None
-                 else torch.zeros_like(getattr(leaves, k)) for k in PARAM_KEYS]
+        grads = [leaf_grad(getattr(leaves, k)) for k in PARAM_KEYS]
         if D > 1:
             flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh, "data")
             grads = [c.view_as(g) for c, g in zip(torch.split(flat, [g.numel() for g in grads]),
@@ -407,8 +408,7 @@ def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: in
         grads.log_scales = grads.log_scales + ls.grad
         g_pose = None
         if pose_on:
-            g_pose = deltas.grad if deltas.grad is not None else torch.zeros_like(deltas)
-            g_pose = _all_reduce(g_pose.contiguous(), mesh, "world")
+            g_pose = _all_reduce(leaf_grad(deltas).contiguous(), mesh, "world")
 
         with torch.no_grad():
             # Logged values: sums and counts over the whole mesh.
@@ -425,42 +425,15 @@ def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: in
             if want_stats:
                 metrics.update({f"stats/{k}": v for k, v in
                                 zip(STAT_KEYS, red[3:3 + len(STAT_KEYS)].to(torch.int64))})
+            metrics["loss"] = loss
             # Densify bookkeeping: the per-gaussian maximum radius over the
             # rank's views (the gathered radii are the same on every band),
             # this rank's shard of it, maximized over the data ranks.
             rmax = radii_max[m * Cs:(m + 1) * Cs].contiguous()
             if D > 1:
                 rmax = _all_reduce(rmax, mesh, "data", op=dist.ReduceOp.MAX)
-
-            xyz_lr = xyz_lr_schedule(config, state.iteration)
-            adam_update(grads, state.opt, gauss.params, group_lrs(config, xyz_lr),
-                        b1=config.adam_b1, b2=config.adam_b2, eps=config.adam_eps)
-            clamp_scales(gauss.params, scene_extent, config.scale_clamp_ratio)
-            gauss.xyz_grad_accum.add_(torch.linalg.norm(grads.means, dim=-1, keepdim=True))
-            gauss.xyz_grad_count.add_(1.0)
-            torch.maximum(gauss.max_radii2d, rmax, out=gauss.max_radii2d)
-
-            if pose_on:
-                plr = pose_lr_schedule(config, state.iteration)
-                gp = torch.where(plr > 0.0, g_pose, torch.zeros_like(g_pose))
-                c1, c2 = adam_bias_corrections(state.opt.step, config.adam_b1, config.adam_b2)
-                poses = state.poses
-                poses.mu.mul_(config.adam_b1).add_((1.0 - config.adam_b1) * gp)
-                poses.nu.mul_(config.adam_b2).add_((1.0 - config.adam_b2) * gp * gp)
-                poses.deltas.sub_(plr * (poses.mu / c1)
-                                  / (torch.sqrt(poses.nu / c2) + config.adam_eps))
-                metrics["pose_lr"] = plr
-                metrics["grad_norm/poses"] = torch.linalg.norm(g_pose)
-                metrics["pose/delta_max"] = poses.deltas.abs().max()
-            state.iteration += 1
-            metrics["loss"] = loss
-            metrics["xyz_lr"] = xyz_lr
-            # Global gradient norms: the shards' squared sums over "model".
-            sq = torch.stack([torch.sum(getattr(grads, k) ** 2) for k in PARAM_KEYS])
-            if M > 1:
-                sq = _all_reduce(sq, mesh, "model")
-            for k, v in zip(PARAM_KEYS, torch.sqrt(sq).unbind()):
-                metrics[f"grad_norm/{k}"] = v
+        apply_gradients(config, state, grads, rmax, scene_extent, metrics, pose_grad=g_pose,
+                        grad_norms=mesh_grad_norms)
         return state, metrics
 
     return step, band_h, h_pad

@@ -6,7 +6,9 @@ moment rows of reused slots, and ``torch.optim.Adam`` keeps a step counter
 per parameter where this optimizer keeps one shared counter (the groups
 step in lockstep, so it is equivalent, including fresh rows inheriting the
 global bias correction). The update is
-``p - lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``, eps 1e-15.
+``p - lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``, eps 1e-15,
+written once, in ``adam_step``: the six groups, the pose deltas, the
+deformation network and the test-time pose alignment all go through it.
 """
 
 from __future__ import annotations
@@ -54,6 +56,16 @@ def adam_bias_corrections(step: torch.Tensor, b1: float, b2: float):
     return 1.0 - (one * b1) ** t, 1.0 - (one * b2) ** t
 
 
+def adam_step(param: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+              lr, c1, c2, b1: float, b2: float, eps: float) -> None:
+    """One Adam update of ``param`` and its moments ``mu``, ``nu``, in place,
+    at rate ``lr`` with the bias corrections ``c1``, ``c2``
+    (``adam_bias_corrections`` of the shared step counter)."""
+    mu.mul_(b1).add_((1.0 - b1) * grad)
+    nu.mul_(b2).add_((1.0 - b2) * grad * grad)
+    param.sub_(lr * (mu / c1) / (torch.sqrt(nu / c2) + eps))
+
+
 @torch.no_grad()
 def adam_update(grads: GaussianParams, state: AdamState, params: GaussianParams,
                 lrs: GaussianParams, b1: float = 0.9, b2: float = 0.999,
@@ -64,18 +76,21 @@ def adam_update(grads: GaussianParams, state: AdamState, params: GaussianParams,
     state.step += 1
     c1, c2 = adam_bias_corrections(state.step, b1, b2)
     for k in PARAM_KEYS:
-        g, p = getattr(grads, k), getattr(params, k)
-        m, v = getattr(state.mu, k), getattr(state.nu, k)
-        m.mul_(b1).add_((1.0 - b1) * g)
-        v.mul_(b2).add_((1.0 - b2) * g * g)
-        p.sub_(getattr(lrs, k) * (m / c1) / (torch.sqrt(v / c2) + eps))
+        adam_step(getattr(params, k), getattr(grads, k), getattr(state.mu, k),
+                  getattr(state.nu, k), getattr(lrs, k), c1, c2, b1, b2, eps)
     return params, state
+
+
+def exp_lr_decay(iteration: torch.Tensor, init: float, final: float,
+                 max_steps: int) -> torch.Tensor:
+    """The rate at ``iteration`` of an exponential decay from ``init`` to
+    ``final`` over ``max_steps``, held at ``final`` after."""
+    progress = torch.clamp_max(iteration.to(torch.float32) / float(max_steps), 1.0)
+    return init * torch.pow(torch.full_like(progress, final / init), progress)
 
 
 def xyz_lr_schedule(config, iteration: torch.Tensor) -> torch.Tensor:
     """Exponential decay from position_lr_init to position_lr_final over
     position_lr_max_steps."""
-    progress = torch.clamp_max(
-        iteration.to(torch.float32) / float(config.position_lr_max_steps), 1.0)
-    ratio = config.position_lr_final / config.position_lr_init
-    return config.position_lr_init * torch.pow(torch.full_like(progress, ratio), progress)
+    return exp_lr_decay(iteration, config.position_lr_init, config.position_lr_final,
+                        config.position_lr_max_steps)

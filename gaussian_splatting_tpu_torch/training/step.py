@@ -5,7 +5,9 @@ per-group Adam, the scale ceiling, the densify accumulators and optional
 camera-pose refinement. With a deformation network in the state and times
 in the batch (Deformable 3D Gaussians, ``models/deform.py``) each view first
 runs the MLP over the alive slots at its time and renders the gaussians
-moved by its offsets; the network takes a seventh Adam group. Spans
+moved by its offsets; the network takes a seventh Adam group. Everything
+after the backward is ``apply_gradients``, which the sharded step
+(``parallel/sharded_step.py``) runs too. Spans
 (``utils/profiling``): ``step.loss`` and its backward ``step.loss.bwd`` a
 view, ``step.backward``, ``step.adam`` and inside it ``step.adam.deform``;
 the MLP's own are ``models/deform.py``'s.
@@ -36,7 +38,9 @@ from gaussian_splatting_tpu_torch.training.loss import photometric_loss, scale_r
 from gaussian_splatting_tpu_torch.training.optimizer import (
     AdamState,
     adam_bias_corrections,
+    adam_step,
     adam_update,
+    exp_lr_decay,
     group_lrs,
     xyz_lr_schedule,
 )
@@ -87,11 +91,69 @@ class ViewBatch:
 def pose_lr_schedule(config, iteration: torch.Tensor) -> torch.Tensor:
     """Exponential decay pose_lr_init -> pose_lr_final over
     position_lr_max_steps, zero before pose_start_iter."""
-    progress = torch.clamp_max(
-        iteration.to(torch.float32) / float(config.position_lr_max_steps), 1.0)
-    ratio = config.pose_lr_final / config.pose_lr_init
-    lr = config.pose_lr_init * torch.pow(torch.full_like(progress, ratio), progress)
+    lr = exp_lr_decay(iteration, config.pose_lr_init, config.pose_lr_final,
+                      config.position_lr_max_steps)
     return torch.where(iteration >= config.pose_start_iter, lr, torch.zeros_like(lr))
+
+
+def leaf_grad(leaf: torch.Tensor) -> torch.Tensor:
+    """The gradient the backward left on ``leaf``; zeros where it left none
+    (a group no view reached)."""
+    return leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+
+
+def group_grad_norms(grads: GaussianParams) -> dict:
+    """The ``grad_norm/<group>`` metrics of a device's whole gradients."""
+    return {f"grad_norm/{k}": torch.linalg.norm(getattr(grads, k)) for k in PARAM_KEYS}
+
+
+def apply_gradients(config, state: TrainState, grads: GaussianParams, radii_max: torch.Tensor,
+                    scene_extent: float, metrics: dict, pose_grad: Optional[torch.Tensor] = None,
+                    deform_grads: Optional[dict] = None, grad_norms=group_grad_norms) -> None:
+    """The step after the backward, in place and in span ``step.adam``,
+    shared by ``make_train_step`` and the sharded step: Adam of the six
+    groups, the scale ceiling, the densify accumulators, ``max_radii2d``
+    (from ``radii_max``, the radius maximum of the state's rows), Adam of
+    the pose deltas and of the deformation network (span
+    ``step.adam.deform``) where their gradients are given, ``iteration``
+    += 1; the rates and ``grad_norms(grads)`` go into ``metrics``."""
+    gauss = state.gauss
+    b1, b2, eps = config.adam_b1, config.adam_b2, config.adam_eps
+    with torch.no_grad(), profiling.annotate("step.adam"):
+        xyz_lr = xyz_lr_schedule(config, state.iteration)
+        adam_update(grads, state.opt, gauss.params, group_lrs(config, xyz_lr),
+                    b1=b1, b2=b2, eps=eps)
+        clamp_scales(gauss.params, scene_extent, config.scale_clamp_ratio)
+        # Densify bookkeeping: ||grad means|| into all 3 accumulator
+        # columns and count += 1 for every gaussian (the reference's
+        # quirk the densify threshold was tuned against).
+        gauss.xyz_grad_accum.add_(torch.linalg.norm(grads.means, dim=-1, keepdim=True))
+        gauss.xyz_grad_count.add_(1.0)
+        torch.maximum(gauss.max_radii2d, radii_max, out=gauss.max_radii2d)
+
+        if pose_grad is not None or deform_grads is not None:
+            c1, c2 = adam_bias_corrections(state.opt.step, b1, b2)
+        if pose_grad is not None:
+            # The schedule gate zeroes gradient and lr before pose_start_iter.
+            plr = pose_lr_schedule(config, state.iteration)
+            gp = torch.where(plr > 0.0, pose_grad, torch.zeros_like(pose_grad))
+            poses = state.poses
+            adam_step(poses.deltas, gp, poses.mu, poses.nu, plr, c1, c2, b1, b2, eps)
+            metrics["pose_lr"] = plr
+            metrics["grad_norm/poses"] = torch.linalg.norm(pose_grad)
+            metrics["pose/delta_max"] = poses.deltas.abs().max()
+        if deform_grads is not None:
+            with profiling.annotate("step.adam.deform"):
+                dlr = deform_model.lr_schedule(config, state.iteration)
+                ds = state.deform
+                for k, p in ds.params.items():
+                    adam_step(p, deform_grads[k], ds.mu[k], ds.nu[k], dlr, c1, c2, b1, b2, eps)
+                metrics["deform_lr"] = dlr
+                metrics["grad_norm/deform"] = torch.linalg.norm(
+                    torch.stack([torch.linalg.norm(g) for g in deform_grads.values()]))
+        state.iteration += 1
+        metrics["xyz_lr"] = xyz_lr
+        metrics.update(grad_norms(grads))
 
 
 def make_train_step(config, width: int, height: int, sh_degree: int, backend: str,
@@ -185,58 +247,16 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
         loss = total / B + reg
         with profiling.annotate("step.backward"):
             loss.backward()
-        grads = GaussianParams(**{
-            k: (getattr(leaves, k).grad if getattr(leaves, k).grad is not None
-                else torch.zeros_like(getattr(leaves, k))) for k in PARAM_KEYS})
         metrics = {k: v / B for k, v in m_acc.items()}
         metrics["scale_reg"] = reg.detach()
         if want_stats:
             metrics.update({f"stats/{k}": v for k, v in s_acc.items()})
-
-        with torch.no_grad(), profiling.annotate("step.adam"):
-            xyz_lr = xyz_lr_schedule(config, state.iteration)
-            adam_update(grads, state.opt, gauss.params, group_lrs(config, xyz_lr),
-                        b1=config.adam_b1, b2=config.adam_b2, eps=config.adam_eps)
-            clamp_scales(gauss.params, scene_extent, config.scale_clamp_ratio)
-            # Densify bookkeeping: ||grad means|| into all 3 accumulator
-            # columns and count += 1 for every gaussian (the reference's
-            # quirk the densify threshold was tuned against).
-            gauss.xyz_grad_accum.add_(torch.linalg.norm(grads.means, dim=-1, keepdim=True))
-            gauss.xyz_grad_count.add_(1.0)
-            torch.maximum(gauss.max_radii2d, radii_max, out=gauss.max_radii2d)
-
-            if pose_on:
-                # Pose Adam with the gaussians' step counter; the schedule
-                # gate zeroes gradient and lr before pose_start_iter.
-                plr = pose_lr_schedule(config, state.iteration)
-                gp = torch.where(plr > 0.0, deltas.grad, torch.zeros_like(deltas.grad))
-                c1, c2 = adam_bias_corrections(state.opt.step, config.adam_b1,
-                                               config.adam_b2)
-                poses = state.poses
-                poses.mu.mul_(config.adam_b1).add_((1.0 - config.adam_b1) * gp)
-                poses.nu.mul_(config.adam_b2).add_((1.0 - config.adam_b2) * gp * gp)
-                poses.deltas.sub_(plr * (poses.mu / c1)
-                                  / (torch.sqrt(poses.nu / c2) + config.adam_eps))
-                metrics["pose_lr"] = plr
-                metrics["grad_norm/poses"] = torch.linalg.norm(deltas.grad)
-                metrics["pose/delta_max"] = poses.deltas.abs().max()
-            if deform_on:
-                with profiling.annotate("step.adam.deform"):
-                    dlr = deform_model.lr_schedule(config, state.iteration)
-                    c1, c2 = adam_bias_corrections(state.opt.step, config.adam_b1,
-                                                   config.adam_b2)
-                    dgrads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
-                              for k, v in net.items()}
-                    deform_model.adam_update(state.deform, dgrads, dlr, c1, c2,
-                                             config.adam_b1, config.adam_b2, config.adam_eps)
-                    metrics["deform_lr"] = dlr
-                    metrics["grad_norm/deform"] = torch.linalg.norm(
-                        torch.stack([torch.linalg.norm(g) for g in dgrads.values()]))
-            state.iteration += 1
-            metrics["loss"] = loss.detach()
-            metrics["xyz_lr"] = xyz_lr
-            for k in PARAM_KEYS:
-                metrics[f"grad_norm/{k}"] = torch.linalg.norm(getattr(grads, k))
+        metrics["loss"] = loss.detach()
+        grads = GaussianParams(**{k: leaf_grad(getattr(leaves, k)) for k in PARAM_KEYS})
+        apply_gradients(
+            config, state, grads, radii_max, scene_extent, metrics,
+            pose_grad=leaf_grad(deltas) if pose_on else None,
+            deform_grads={k: leaf_grad(v) for k, v in net.items()} if deform_on else None)
         return state, metrics
 
     return step

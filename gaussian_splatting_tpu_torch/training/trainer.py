@@ -76,7 +76,7 @@ from gaussian_splatting_tpu_torch.training.config import TrainingConfig
 from gaussian_splatting_tpu_torch.training.export import export_state_ply
 from gaussian_splatting_tpu_torch.training.loss import psnr as psnr_fn
 from gaussian_splatting_tpu_torch.training.loss import ssim as ssim_fn
-from gaussian_splatting_tpu_torch.training.optimizer import AdamState, adam_init
+from gaussian_splatting_tpu_torch.training.optimizer import AdamState, adam_init, adam_step
 from gaussian_splatting_tpu_torch.training.step import (
     TrainState,
     ViewBatch,
@@ -160,8 +160,8 @@ def align_pose(render_image, viewmat: torch.Tensor, gt: torch.Tensor, n_steps: i
     The trainer's validation decays the rate 30x with the config's betas
     (JAX ``trainer.py:845``); the eval CLI keeps it constant with betas
     (0.9, 0.999, 1e-8) (JAX ``eval_cli.py:164-208``)."""
-    z = torch.zeros((6,), dtype=torch.float32, device=viewmat.device)
-    xi, mu, nu, best_xi = z, z, z, z
+    xi, mu, nu, best_xi = (torch.zeros((6,), dtype=torch.float32, device=viewmat.device)
+                           for _ in range(4))
     best_l = torch.tensor(float("inf"), device=viewmat.device)
     for i in range(n_steps):
         leaf = xi.detach().requires_grad_(True)
@@ -172,11 +172,11 @@ def align_pose(render_image, viewmat: torch.Tensor, gt: torch.Tensor, n_steps: i
             better = loss < best_l
             best_xi = torch.where(better, xi, best_xi)
             best_l = torch.where(better, loss, best_l)
+            # Bias corrections and rate as Python doubles, as the JAX eval
+            # CLI computes them.
             t = float(i + 1)
-            mu = b1 * mu + (1.0 - b1) * g
-            nu = b2 * nu + (1.0 - b2) * g * g
-            lr_t = lr * lr_decay ** (t / float(n_steps))
-            xi = xi - lr_t * (mu / (1.0 - b1 ** t)) / (torch.sqrt(nu / (1.0 - b2 ** t)) + eps)
+            adam_step(xi, g, mu, nu, lr * lr_decay ** (t / float(n_steps)), 1.0 - b1 ** t,
+                      1.0 - b2 ** t, b1, b2, eps)
     return apply_pose_delta(viewmat, best_xi)
 
 

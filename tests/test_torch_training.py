@@ -139,6 +139,84 @@ def test_adam_update_and_schedules_match_jax(rng):
                                    rtol=1e-5)
 
 
+def _adam_as_written_before(p, g, m, v, lr, step, b1, b2, eps):
+    """The in-place update and bias corrections as each update site wrote
+    them before the port had one Adam (``optimizer.adam_step``)."""
+    t = step.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32)
+    c1, c2 = 1.0 - (one * b1) ** t, 1.0 - (one * b2) ** t
+    m.mul_(b1).add_((1.0 - b1) * g)
+    v.mul_(b2).add_((1.0 - b2) * g * g)
+    p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + eps))
+
+
+def _decay_as_written_before(it, init, final, max_steps):
+    progress = torch.clamp_max(it.to(torch.float32) / float(max_steps), 1.0)
+    return init * torch.pow(torch.full_like(progress, final / init), progress)
+
+
+@pytest.mark.parametrize("group", ["gaussians", "poses", "mlp"])
+def test_adam_step_and_decay_are_the_formulas_they_replace(rng, group):
+    """The one Adam update and the one exponential decay equal, bit for bit,
+    the copies they replace: the six gaussian groups (``adam_update``), the
+    pose deltas (gated by their schedule) and the deformation network's
+    tensors, each with its own rate schedule."""
+    from gaussian_splatting_tpu_torch.models import deform as t_deform
+
+    cfg = TConfig(pose_start_iter=500)
+    b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
+    if group == "gaussians":
+        shapes = [(40, 3), (40, 4), (40, 3), (40, 1), (40, 1, 3), (40, 15, 3)]
+        init, final, max_steps = (cfg.position_lr_init, cfg.position_lr_final,
+                                  cfg.position_lr_max_steps)
+        schedule = t_opt.xyz_lr_schedule
+    elif group == "poses":
+        shapes = [(4, 6)]
+        init, final, max_steps = cfg.pose_lr_init, cfg.pose_lr_final, cfg.position_lr_max_steps
+        schedule = t_step.pose_lr_schedule
+    else:
+        shapes = [s for _, s in t_deform.DeformSpec(depth=4, width=32, skip=2).shapes()]
+        init, final = t_deform.LR_SCALE * cfg.position_lr_init, cfg.position_lr_final
+        max_steps, schedule = t_deform.LR_MAX_STEPS, t_deform.lr_schedule
+    for it in (0, 1000, max_steps + 1000):
+        it = torch.tensor(it, dtype=torch.int32)
+        want = _decay_as_written_before(it, init, final, max_steps)
+        if group == "poses":
+            want = torch.where(it >= cfg.pose_start_iter, want, torch.zeros_like(want))
+        else:
+            assert torch.equal(t_opt.exp_lr_decay(it, init, final, max_steps), want)
+        assert torch.equal(schedule(cfg, it), want), int(it)
+
+    def tensors():
+        return [torch.as_tensor(rng.normal(size=s).astype(np.float32)) for s in shapes]
+
+    params, grads, mus = tensors(), tensors(), tensors()
+    nus = [torch.abs(v) for v in tensors()]
+    if group == "poses":
+        grads = [torch.where(schedule(cfg, torch.tensor(1000)) > 0.0, g, torch.zeros_like(g))
+                 for g in grads]
+    lrs = [schedule(cfg, torch.tensor(1000))] + [1e-3 * (i + 1) for i in range(len(shapes) - 1)]
+    want = [[t.clone() for t in ts] for ts in (params, mus, nus)]
+    before = params[0].clone()
+    step = torch.tensor(7, dtype=torch.int32)
+    for (p, m, v), g, lr in zip(zip(*want), grads, lrs):
+        _adam_as_written_before(p, g, m, v, lr, step, b1, b2, eps)
+    if group == "gaussians":
+        opt = t_opt.AdamState(mu=GaussianParams(*mus), nu=GaussianParams(*nus),
+                              step=torch.tensor(6, dtype=torch.int32))
+        t_opt.adam_update(GaussianParams(*grads), opt, GaussianParams(*params),
+                          GaussianParams(*lrs), b1=b1, b2=b2, eps=eps)
+        assert torch.equal(opt.step, step)
+    else:
+        c1, c2 = t_opt.adam_bias_corrections(step, b1, b2)
+        for p, g, m, v, lr in zip(params, grads, mus, nus, lrs):
+            t_opt.adam_step(p, g, m, v, lr, c1, c2, b1, b2, eps)
+    for got, exp in zip((params, mus, nus), want):
+        for a, b in zip(got, exp):
+            assert torch.equal(a, b)
+    assert not torch.equal(params[0], before)
+
+
 def test_se3_exp_matches_jax_with_finite_gradient_at_zero(rng):
     xi = np.concatenate([rng.normal(size=(4, 6)) * 0.5, np.zeros((1, 6)),
                          rng.normal(size=(1, 6)) * 1e-6]).astype(np.float32)
