@@ -4,7 +4,7 @@ kernels against its plain PyTorch version.
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (any failure exits nonzero and prints no result):
-1. build the ten kernel sources in ``gaussian_splatting_tpu_torch/csrc/`` with
+1. build the eleven kernel sources in ``gaussian_splatting_tpu_torch/csrc/`` with
    nvcc for sm_90a (one process per source, all at once) and print each
    kernel's registers and spills;
 2. the bench scene of ``bench.py`` (numpy seed 0, 1M screen-space
@@ -208,9 +208,19 @@ Phases (any failure exits nonzero and prints no result):
    bands); each kernel's time beside its bytes bound and the plain chain's;
    and through phases 4 and 5, the pair launched once a render and once a
    training view.
+16. Adam as one kernel (``adam_phase``, after phase 15; alone:
+   ``adam_alone``), ``csrc/adam.cu`` through ``optimizer.adam_multi`` at
+   the cells' buffers (``ADAM_CASES``: the six groups at 1.5M and 4.665M
+   slots, 59 floats a slot; the deformation network's 22 tensors): three
+   steps bit for bit against the plain ``adam_step`` on the card, with
+   nonzero moments, zero gradient rows and a NaN row, one launch a step;
+   the kernel's time alone beside its bytes bound (28 B an element), the
+   plain loop's and their peak memory; no launch for CPU tensors; and
+   through phases 5 and 8, one launch a training step.
 
 Output: the kernels JSON line (phase 13's numbers under ``project_sh``,
-phase 14's under ``project_sh.deform``, phase 15's under ``bin_slots``;
+phase 14's under ``project_sh.deform``, phase 15's under ``bin_slots``,
+phase 16's under ``adam``;
 each row also with ``kernel_ms``, the kernel's profiler time,
 ``trainer_launches``, its launches in phase 8,
 ``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
@@ -341,7 +351,8 @@ SEGSUM_ATOL_FRAC = 1e-5
 # The raster kernels' alpha gate (raster_common.cuh::kAlphaSkip).
 ALPHA_SKIP = np.float32(1.0 / 255.0)
 KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
-           "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh", "bin_slots")
+           "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh", "bin_slots",
+           "adam")
 
 
 def log(msg):
@@ -394,12 +405,12 @@ def kernel_ms(fn, name, reps=10):
 
 def launch_counters():
     """The launch counters of the eight kernels, of the projection + SH
-    pair's two and of the binning's slot pair (``utils/profiling``), by
-    kernel name."""
+    pair's two, of the binning's slot pair and of Adam
+    (``utils/profiling``), by kernel name."""
     return {k: f"launch.{k}" for k in ("pack_soa", "rasterize_fwd", "rasterize_bwd",
                                         "pack_rows", "segsum", "rasterize_fwd_q",
                                         "rasterize_bwd_q", "partition", "project_sh_fwd",
-                                        "project_sh_bwd", "bin_slots")}
+                                        "project_sh_bwd", "bin_slots", "adam")}
 
 
 def reset_launches():
@@ -3091,6 +3102,162 @@ def bin_slots_alone():
     print(json.dumps(rep), flush=True)
 
 
+# Phase 16, Adam as one kernel (csrc/adam.cu) at the benchmark cells'
+# buffers: (case, tensor shapes). The 1080p and deformable trainer cells keep
+# 1M gaussians in 1.5M slots, the 3.11M cell 4.665M slots; a slot holds 59
+# floats over the six groups. The deformable cell's network adds 22 tensors.
+ADAM_GROUP_SHAPES = ((3,), (4,), (3,), (1,), (1, 3), (15, 3))
+ADAM_CASES = (
+    ("groups_1500000", tuple((1_500_000,) + s for s in ADAM_GROUP_SHAPES)),
+    ("groups_4665000", tuple((4_665_000,) + s for s in ADAM_GROUP_SHAPES)),
+    ("deform_mlp", None),
+)
+ADAM_BYTES_PER_ELEMENT = 28  # gradient, parameter and moments read; the last three written
+
+
+def _adam_inputs(dev, shapes, seed):
+    """Seeded ``(params, grads, mus, nus, lrs)`` of ``shapes`` on ``dev``:
+    nonzero moments, zero gradients on every third row, NaN on row 1 of the
+    first gradient; the first rate a 0-dim tensor (the position rate or the
+    network's), the others the config's group rates."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.gaussians import PARAM_KEYS
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.optimizer import group_lrs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(scale):
+        return [torch.randn(s, generator=g, device=dev) * scale for s in shapes]
+    params, grads, mus = draw(1.0), draw(1e-2), draw(1e-3)
+    nus = [x.abs() for x in draw(1e-3)]
+    for x in grads:
+        if x.dim() > 1:
+            x[::3] = 0.0
+    grads[0][1] = float("nan")
+    rate = torch.tensor(1.6e-4, device=dev)
+    if len(shapes) == len(ADAM_GROUP_SHAPES):
+        rates = group_lrs(TrainingConfig(), rate)
+        lrs = [getattr(rates, k) for k in PARAM_KEYS]
+    else:
+        lrs = [rate] * len(shapes)
+    return params, grads, mus, nus, lrs
+
+
+def adam_phase(dev):
+    """Phase 16: ``optimizer.adam_multi`` (``csrc/adam.cu``) against the
+    plain ``adam_step`` loop on the card at each of ``ADAM_CASES``: three
+    steps bit for bit (NaN where the plain code has NaN), one launch a
+    step; the kernel's time alone (profiler) beside its bytes bound, the
+    call's and the plain loop's (CUDA events) and their peak memory; and no
+    launch for CPU tensors. Fails after the last case if any missed a gate."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.models.deform import DeformSpec
+    from gaussian_splatting_tpu_torch.training.optimizer import (
+        adam_bias_corrections, adam_multi, adam_step)
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    b1, b2, eps = 0.9, 0.999, 1e-15
+    rep, missed = {}, []
+
+    def corrections(t):
+        return adam_bias_corrections(torch.tensor(t, dtype=torch.int32, device=dev), b1, b2)
+
+    def plain(ps, gs, ms, vs, lrs, c1, c2):
+        for p, g, m, v, lr in zip(ps, gs, ms, vs, lrs):
+            adam_step(p, g, m, v, lr, c1, c2, b1, b2, eps)
+
+    for case, shapes in ADAM_CASES:
+        if shapes is None:
+            shapes = tuple(s for _, s in DeformSpec().shapes())
+        params, grads, mus, nus, lrs = _adam_inputs(dev, shapes, seed=16)
+        want = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+        profiling.reset_counters("launch.adam")
+        for t in (6081, 6082, 6083):
+            c1, c2 = corrections(t)
+            plain(want[0], grads, want[1], want[2], lrs, c1, c2)
+            adam_multi(params, grads, mus, nus, lrs, c1, c2, b1, b2, eps)
+        torch.cuda.synchronize()
+        launches = profiling.counters().get("launch.adam", 0)
+        differ = 0
+        for got, exp in zip((params, mus, nus), want):
+            for a, b in zip(got, exp):
+                same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+                a0, b0 = (torch.where(torch.isnan(x), 0.0, x).view(torch.int32) for x in (a, b))
+                differ += int((a0 != b0).sum()) + (0 if same_nan else 1)
+        n = sum(p.numel() for p in params)
+        r = {"tensors": len(shapes), "elements": n, "elements_differing": differ,
+             "launches_in_3_steps": launches,
+             "nan_propagated": bool(torch.isnan(params[0][1]).all())}
+        if differ or launches != 3 or not r["nan_propagated"]:
+            missed.append(f"{case}: {r}")
+        del want
+        c1, c2 = corrections(6084)
+        call = lambda: adam_multi(params, grads, mus, nus, lrs, c1, c2, b1, b2, eps)  # noqa: E731
+        loop = lambda: plain(params, grads, mus, nus, lrs, c1, c2)  # noqa: E731
+        turns = in_turns({"kernel": call, "plain": loop}, reps=5)
+        r.update(kernel_ms=kernel_ms(call, "adam_kernel"),
+                 bound_ms=n * ADAM_BYTES_PER_ELEMENT / HBM_BYTES_PER_S * 1e3,
+                 call_ms=statistics.median(turns["kernel"]),
+                 plain_ms=statistics.median(turns["plain"]),
+                 call_peak_gib=peak_gib(call), plain_peak_gib=peak_gib(loop))
+        r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+        log(f"[adam] {case} ({len(shapes)} tensors, {n} elements): {json.dumps(r)}")
+        rep[case] = r
+        del params, grads, mus, nus, lrs, call, loop
+        torch.cuda.empty_cache()
+    # CPU tensors take the plain loop: no launch.
+    cpu = torch.device("cpu")
+    ps, gs, ms, vs, lrs = _adam_inputs(cpu, [(40,) + s for s in ADAM_GROUP_SHAPES], seed=16)
+    before = profiling.counters().get("launch.adam", 0)
+    c1, c2 = adam_bias_corrections(torch.tensor(1, dtype=torch.int32), b1, b2)
+    adam_multi(ps, gs, ms, vs, lrs, c1, c2, b1, b2, eps)
+    rep["cpu_launches"] = profiling.counters().get("launch.adam", 0) - before
+    if rep["cpu_launches"]:
+        missed.append(f"CPU tensors launched the kernel {rep['cpu_launches']} times")
+    if missed:
+        fail(f"[adam] the kernel missed its gates: {missed}")
+    return rep
+
+
+def adam_launches(train_launches, n_steps, tag):
+    """Adam's launches through ``n_steps`` training steps: one a step (the
+    six groups in one launch)."""
+    got = train_launches["adam"]
+    log(f"[adam] launches: {n_steps} steps ({tag}) {got}")
+    if got != n_steps:
+        fail(f"[adam] the {tag} did not launch the kernel once a step: {got} in {n_steps}")
+    return got
+
+
+def adam_alone():
+    """Phase 16 alone, with the training phase it counts the kernel's
+    launches in: ``python -c "import chip_smoke; chip_smoke.adam_alone()"``
+    from the repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    for line in _build.build_log("adam").splitlines():
+        if "Compiling entry function" in line or "Used" in line or "spill" in line:
+            log(f"[build] adam: {line.strip()}")
+    dev = torch.device("cuda")
+    rep = {"adam": adam_phase(dev)}
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    views = [{"world_view_transform": look_at(e, (0.0, 0.0, 0.0), device=dev), "K": K}
+             for e in view_eyes()]
+    _, images, _ = render_phase(dev, state_from_numpy(scene, device=dev), views)
+    launches = train_phase(dev, scene, views, images)[4]
+    rep["launches"] = adam_launches(launches, TRAIN_STEPS, "training step")
+    print(json.dumps(rep), flush=True)
+
+
 def _cli_call(main, argv, records):
     """``main(argv)`` of a CLI with its standard output kept off this
     script's (the eval CLI prints a JSON summary line); returns the exit
@@ -3904,6 +4071,7 @@ def run(dev):
                                        TRAIN_STEPS * images.shape[0])
     bsl_launches = bin_slots_launches(render_launches, launches, len(views),
                                       TRAIN_STEPS * images.shape[0])
+    adam_step_launches = adam_launches(launches, TRAIN_STEPS, "training step")
 
     # 6. Timings at the main paths' shapes, CUDA events, medians.
     render_ms = [cuda_ms(lambda vp=vp: raster.render_single(state.params, vp),
@@ -4267,9 +4435,12 @@ def run(dev):
     psh["deform"] = deform_phase(dev)
     # 15. The binning's slot enumeration at the cells' shapes.
     bsl = bin_slots_phase(dev)
+    # 16. Adam as one kernel at the cells' buffers.
+    adm = adam_phase(dev)
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
+    adam_trainer_launches = adam_launches(tr["launches"], TRAINER_ITERS, "trainer")
     # 9. The user journey through the two CLIs; their launches too.
     cli = cli_phase(dev)
     # 10. The mesh: the sharded step and the trainer on it.
@@ -4315,7 +4486,9 @@ def run(dev):
                 "bound_unculled_ms": max(bytes_ms, unculled_ops_ms)}
 
     return {"project_sh": dict(psh, launches=psh_launches),
-            "bin_slots": dict(bsl, launches=bsl_launches), "kernels": [
+            "bin_slots": dict(bsl, launches=bsl_launches),
+            "adam": dict(adm, launches={"train_steps": adam_step_launches,
+                                        "trainer": adam_trainer_launches}), "kernels": [
         row("pack_soa", "pack_soa.cu", "gaussian_splatting_tpu/ops/tiling.py:335",
             pack_err, pack_ms, pack_plain_ms, pack_bound, "bytes", pack_lib_ms),
         row("rasterize_fwd", "rasterize_fwd.cu",

@@ -28,10 +28,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 # Flags one source adds to NVCC_FLAGS. project_sh's radii and bin_slots'
-# tiles decide the binning and must equal those of the plain PyTorch
-# arithmetic, which rounds every product and every sum: no multiply-add
-# contraction there.
-SOURCE_FLAGS = {"project_sh": ("-fmad=false",), "bin_slots": ("-fmad=false",)}
+# tiles decide the binning, and adam's update is the plain update's bit for
+# bit: each must equal the plain PyTorch arithmetic, which rounds every
+# product and every sum, so no multiply-add contraction there.
+SOURCE_FLAGS = {"project_sh": ("-fmad=false",), "bin_slots": ("-fmad=false",),
+                "adam": ("-fmad=false",)}
 
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 # Host C++ for the machine's baseline ISA: a library built here may be loaded

@@ -38,7 +38,7 @@ from gaussian_splatting_tpu_torch.training.loss import photometric_loss, scale_r
 from gaussian_splatting_tpu_torch.training.optimizer import (
     AdamState,
     adam_bias_corrections,
-    adam_step,
+    adam_multi,
     adam_update,
     exp_lr_decay,
     group_lrs,
@@ -116,7 +116,8 @@ def apply_gradients(config, state: TrainState, grads: GaussianParams, radii_max:
     (from ``radii_max``, the radius maximum of the state's rows), Adam of
     the pose deltas and of the deformation network (span
     ``step.adam.deform``) where their gradients are given, ``iteration``
-    += 1; the rates and ``grad_norms(grads)`` go into ``metrics``."""
+    += 1; the rates and ``grad_norms(grads)`` go into ``metrics``. Each
+    Adam is one ``adam_multi`` (one kernel launch on the card)."""
     gauss = state.gauss
     b1, b2, eps = config.adam_b1, config.adam_b2, config.adam_eps
     with torch.no_grad(), profiling.annotate("step.adam"):
@@ -138,7 +139,7 @@ def apply_gradients(config, state: TrainState, grads: GaussianParams, radii_max:
             plr = pose_lr_schedule(config, state.iteration)
             gp = torch.where(plr > 0.0, pose_grad, torch.zeros_like(pose_grad))
             poses = state.poses
-            adam_step(poses.deltas, gp, poses.mu, poses.nu, plr, c1, c2, b1, b2, eps)
+            adam_multi([poses.deltas], [gp], [poses.mu], [poses.nu], [plr], c1, c2, b1, b2, eps)
             metrics["pose_lr"] = plr
             metrics["grad_norm/poses"] = torch.linalg.norm(pose_grad)
             metrics["pose/delta_max"] = poses.deltas.abs().max()
@@ -146,8 +147,10 @@ def apply_gradients(config, state: TrainState, grads: GaussianParams, radii_max:
             with profiling.annotate("step.adam.deform"):
                 dlr = deform_model.lr_schedule(config, state.iteration)
                 ds = state.deform
-                for k, p in ds.params.items():
-                    adam_step(p, deform_grads[k], ds.mu[k], ds.nu[k], dlr, c1, c2, b1, b2, eps)
+                names = list(ds.params)
+                adam_multi([ds.params[k] for k in names], [deform_grads[k] for k in names],
+                           [ds.mu[k] for k in names], [ds.nu[k] for k in names],
+                           [dlr] * len(names), c1, c2, b1, b2, eps)
                 metrics["deform_lr"] = dlr
                 metrics["grad_norm/deform"] = torch.linalg.norm(
                     torch.stack([torch.linalg.norm(g) for g in deform_grads.values()]))
