@@ -218,9 +218,24 @@ Phases (any failure exits nonzero and prints no result):
    plain loop's and their peak memory; no launch for CPU tensors; and
    through phases 5 and 8, one launch a training step.
 
+17. 2D Gaussian Splatting (``surfel_phase``, after phase 16; alone:
+   ``surfel_alone``): phase 5's scene as surfels (its first two scales) at
+   a 1080p view: the projection pair (``gs_project_surfel_fwd`` / ``_bwd``
+   of ``csrc/project_sh.cu``) against its plain version, radii bit for
+   bit, the rest within 1e-5 of each output's largest magnitude, the
+   gradients within 1e-4; the raster pair (``csrc/rasterize_surfel.cu``)
+   against its plain version on the compact binning, chunk 256: the stop
+   decisions and median depths bit for bit, the maps within 1e-5 (the
+   distortion 1e-5 of the largest M2, the size of the terms it cancels
+   from), the reduced gradients within 1e-4; each kernel's time alone;
+   then ``TRAIN_STEPS`` steps of ``make_train_step`` with surfels at batch
+   4 (both regularizers on): finite, descending losses, no gradient entry
+   dropped, one projection pair and one raster pair launched a view, the
+   step's time and peak memory.
+
 Output: the kernels JSON line (phase 13's numbers under ``project_sh``,
 phase 14's under ``project_sh.deform``, phase 15's under ``bin_slots``,
-phase 16's under ``adam``;
+phase 16's under ``adam``, phase 17's under ``surfel``;
 each row also with ``kernel_ms``, the kernel's profiler time,
 ``trainer_launches``, its launches in phase 8,
 ``train_cli_launches`` / ``eval_cli_launches``, in phase 9's two calls,
@@ -352,7 +367,7 @@ SEGSUM_ATOL_FRAC = 1e-5
 ALPHA_SKIP = np.float32(1.0 / 255.0)
 KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
            "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh", "bin_slots",
-           "adam")
+           "adam", "rasterize_surfel")
 
 
 def log(msg):
@@ -3258,6 +3273,176 @@ def adam_alone():
     print(json.dumps(rep), flush=True)
 
 
+SURFEL_LAUNCHES = ("project_surfel_fwd", "project_surfel_bwd", "surfel_raster_fwd",
+                   "surfel_raster_bwd")
+
+
+def surfel_phase(dev):
+    """Phase 17: the surfel kernel pairs against their plain versions at a
+    1080p view of phase 5's scene as surfels, each kernel's time alone,
+    then ``TRAIN_STEPS`` surfel training steps at batch 4."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.core.cameras import look_at, make_intrinsics
+    from gaussian_splatting_tpu_torch.models.gaussians import train_state_from_numpy
+    from gaussian_splatting_tpu_torch.ops import surfel as S
+    from gaussian_splatting_tpu_torch.ops.tiling import isect_and_sort
+    from gaussian_splatting_tpu_torch.training.config import TrainingConfig
+    from gaussian_splatting_tpu_torch.training.step import ViewBatch, make_train_step
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    scene = scene_3d(N_GAUSSIANS, seed=0)
+    scene["log_scales"] = scene["log_scales"][:, :2].copy()
+    K = make_intrinsics(WIDTH, HEIGHT, device=dev)
+    vms = [look_at(e, (0.0, 0.0, 0.0), device=dev) for e in view_eyes()]
+    p = {k: torch.as_tensor(v, device=dev) for k, v in scene.items()}
+    sh = torch.cat([p["features_dc"], p["features_rest"]], 1)
+    args = (p["means"], p["quats"], p["log_scales"], p["logit_opacities"].reshape(-1), sh,
+            vms[0], K)
+    rep, missed = {}, []
+
+    # The projection pair.
+    got = S._ProjectSurfels.apply(*args, (WIDTH, HEIGHT, 3))
+    want = S.project_surfels_plain(*args, WIDTH, HEIGHT, 3)
+    proj = {"radii_differ": int((got[5] != want.radii).sum()),
+            "visible": int((want.radii > 0).sum())}
+    for i, name in enumerate(S.SurfelProjected._fields):
+        if name != "radii":
+            proj[f"{name}_rel_err"] = _rel_err(got[i], getattr(want, name))
+            if proj[f"{name}_rel_err"] > 1e-5:
+                missed.append(f"projection {name}")
+    if proj["radii_differ"]:
+        missed.append("projection radii")
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    cot = [torch.randn(t.shape, generator=g, device=dev)
+           for t in (want.centers, want.tmat, want.normals, want.colors, want.opac)]
+    ins = S._surfel_inputs(*args)
+    outs = [torch.empty_like(x) for x in ins[:5]]
+    S._launch_project("bwd", ins, WIDTH, HEIGHT, 3, [*cot, *outs])
+    ref = S.project_surfels_bwd_plain(*args, 3, *cot)
+    for name, a, b in zip(("means", "quats", "log_scales", "logits", "sh"), outs, ref):
+        proj[f"d_{name}_rel_err"] = _rel_err(a, b)
+        if proj[f"d_{name}_rel_err"] > 1e-4:
+            missed.append(f"projection backward {name}")
+    proj["fwd_kernel_ms"] = kernel_ms(lambda: S._ProjectSurfels.apply(*args, (WIDTH, HEIGHT, 3)),
+                                      "project_surfel_fwd_kernel")
+    proj["bwd_kernel_ms"] = kernel_ms(
+        lambda: S._launch_project("bwd", ins, WIDTH, HEIGHT, 3, [*cot, *outs]),
+        "project_surfel_bwd_kernel")
+    rep["projection"] = proj
+    log(f"[surfel] projection: {json.dumps(proj)}")
+
+    # The raster pair on the view's own binning.
+    with torch.no_grad():
+        sp = S.SurfelProjected(*got)
+        ra, rb = S.surfel_records(sp)
+        b = isect_and_sort(sp.centers, sp.conics, sp.colors, sp.opac, sp.depths, sp.radii, WIDTH,
+                           HEIGHT, TILE, CHUNK, MAX_T, records=ra)
+        ntx = -(-WIDTH // TILE)
+        fargs = (b.tile_starts, b.counts, b.sorted_soa, S.second_soa(rb, b.sorted_soa), TILE, ntx,
+                 CHUNK)
+        fo = S.surfel_fwd(*fargs)
+        fp, pairs = S.surfel_fwd_plain(*fargs)
+        ras = {"n_isect": int(b.n_isect), "pairs": int(pairs),
+               "stop_differ": int(((fo[:, 4] == 0) != (fp[:, 4] == 0)).sum()),
+               "median_differ": int((fo[:, 9] != fp[:, 9]).sum())}
+        for r in range(12):
+            if r == 9:
+                continue
+            scale = fp[:, 11] if r == 8 else fp[:, r]
+            ras[f"row{r}_err"] = float((fo[:, r] - fp[:, r]).abs().max()
+                                       / scale.abs().max().clamp_min(1e-30))
+            if ras[f"row{r}_err"] > 1e-5:
+                missed.append(f"raster forward row {r}")
+        if ras["stop_differ"] or ras["median_differ"]:
+            missed.append("raster stop decisions or median depths")
+        gout = torch.randn(fo.shape, generator=g, device=dev)
+        gout[:, 9:] = 0.0
+        n = sp.centers.shape[0]
+        cap = S.grad_cap(n, MAX_T, CHUNK)
+        bargs = (*fargs[:4], gout, fp, TILE, ntx, CHUNK, n, cap)
+        grad, meta = S.surfel_bwd(*bargs)
+        grad_p, meta_p, active = S.surfel_bwd_plain(*bargs)
+        ras["active_pairs"] = int(active)
+        s_k = S.reduce_surfel_grads(grad, n, meta[0])
+        s_p = S.reduce_surfel_grads(grad_p, n, meta_p[0])
+        for r, key in enumerate(S.SURFEL_GRAD_KEYS):
+            ras[f"{key}_err"] = _rel_err(s_k[r], s_p[r])
+            if ras[f"{key}_err"] > 1e-4:
+                missed.append(f"raster backward {key}")
+        if not torch.equal(meta, meta_p):
+            missed.append("raster backward meta")
+        ras["fwd_kernel_ms"] = kernel_ms(lambda: S.surfel_fwd(*fargs), "surfel_fwd_kernel")
+        ras["bwd_kernel_ms"] = kernel_ms(lambda: S.surfel_bwd(*bargs), "surfel_bwd_kernel")
+        ras["reduce_ms"] = cuda_ms(lambda: S.reduce_surfel_grads(grad, n, meta[0]))
+    rep["raster"] = ras
+    log(f"[surfel] raster: {json.dumps(ras)}")
+    del fo, fp, grad, grad_p, b, sp, got, want, outs, ref
+    torch.cuda.empty_cache()
+
+    # Training steps with both terms on.
+    config = TrainingConfig(backend="auto", surfels=True)
+    step = make_train_step(config, WIDTH, HEIGHT, 3, config.backend, SCENE_EXTENT, device=dev)
+    arrays = noisy_train_arrays(scene, seed=1)
+    arrays["iteration"] = np.int32(7080)
+    state = train_state_from_numpy(arrays, device=dev)
+    with torch.no_grad():
+        images = torch.stack([torch.clamp(S.rasterize_surfels(S.project_surfels(
+            *args[:5], vm, K, WIDTH, HEIGHT, 3), WIDTH, HEIGHT)[0][..., :3], 0, 1) for vm in vms])
+    batch = ViewBatch(images=images, viewmats=torch.stack(vms), Ks=torch.stack([K] * len(vms)))
+    profiling.reset_counters(*(f"launch.{k}" for k in SURFEL_LAUNCHES))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        e.record()
+        e.synchronize()
+        step_ms.append(a.elapsed_time(e))
+        losses.append(float(m["loss"]))
+        log(f"[surfel] step {i}: loss {losses[-1]:.6f}, l1 {float(m['l1']):.5f}, normal "
+            f"{float(m['surfel/normal']):.5f}, dist {float(m['surfel/dist']):.3e}, n_isect "
+            f"{int(m['stats/n_isect'])}, n_grad_dropped {int(m['stats/n_grad_dropped'])}, "
+            f"{step_ms[-1]:.3f} ms")
+        if not np.isfinite(losses[-1]) or int(m["stats/n_grad_dropped"]) > 0:
+            missed.append(f"training step {i}: loss not finite or gradient entries dropped")
+    counts = profiling.counters()
+    launches = {k: counts.get(f"launch.{k}", 0) for k in SURFEL_LAUNCHES}
+    n_views = TRAIN_STEPS * len(vms)
+    if any(v != n_views for v in launches.values()):
+        missed.append(f"launches {launches}, not one of each a view ({n_views} views)")
+    if not losses[-1] < losses[0]:
+        missed.append(f"the loss did not descend: {losses}")
+    rep["train"] = {"step_ms": step_ms, "losses": losses, "launches": launches,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[surfel] train: {json.dumps(rep['train'])}")
+    if missed:
+        fail(f"[surfel] missed: {missed}")
+    return rep
+
+
+def surfel_alone():
+    """Phase 17 alone: ``python -c "import chip_smoke; chip_smoke.surfel_alone()"``
+    from the repository root."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops import _build
+
+    _build.build(KERNELS)
+    for name in ("rasterize_surfel", "project_sh"):
+        fn = "?"
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif ("Used" in line or "spill" in line) and "surfel" in fn:
+                log(f"[build] {name} {fn}: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"surfel": surfel_phase(torch.device("cuda"))}), flush=True)
+
+
 def _cli_call(main, argv, records):
     """``main(argv)`` of a CLI with its standard output kept off this
     script's (the eval CLI prints a JSON summary line); returns the exit
@@ -4437,6 +4622,7 @@ def run(dev):
     bsl = bin_slots_phase(dev)
     # 16. Adam as one kernel at the cells' buffers.
     adm = adam_phase(dev)
+    srf = surfel_phase(dev)
 
     # 8. The trainer through its entry point; its launches beside each row's.
     tr = trainer_phase(dev, scene, raster)
@@ -4488,7 +4674,8 @@ def run(dev):
     return {"project_sh": dict(psh, launches=psh_launches),
             "bin_slots": dict(bsl, launches=bsl_launches),
             "adam": dict(adm, launches={"train_steps": adam_step_launches,
-                                        "trainer": adam_trainer_launches}), "kernels": [
+                                        "trainer": adam_trainer_launches}),
+            "surfel": srf, "kernels": [
         row("pack_soa", "pack_soa.cu", "gaussian_splatting_tpu/ops/tiling.py:335",
             pack_err, pack_ms, pack_plain_ms, pack_bound, "bytes", pack_lib_ms),
         row("rasterize_fwd", "rasterize_fwd.cu",

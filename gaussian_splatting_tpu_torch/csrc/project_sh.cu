@@ -752,3 +752,411 @@ extern "C" int gs_project_sh_bwd(int n, int kb, int degree, int antialiased, flo
   return antialiased ? bwd_degree<true, false>(degree, n, k3, width, height, in, gin, out, st)
                      : bwd_degree<false, false>(degree, n, k3, width, height, in, gin, out, st);
 }
+
+// ---- surfels (2D Gaussian Splatting, ops/surfel.py) ---------------------------
+//
+// One thread a surfel, as the static pair: the forward writes what
+// project_surfels_plain returns, the projected centre c (n, 2), the map T
+// centred at c (n, 7: T_u1 T_u2 T_v1 T_v2 T_w1 T_w2 T_w3), the view-space
+// normal facing the camera (n, 3), the centre depth, the binning ellipse
+// as a conic (n, 3) and its radius (int32, 0 = culled), the colour (n, 3)
+// and the opacity, each in the plain code's operation order (this source
+// builds with -fmad=false, so the radii come out as the plain code's). The
+// backward takes the cotangents of c, T, the normal, the colour and the
+// opacity (null = zero) and writes the gradients of means, quats, the two
+// log-scales, the logits and the SH rows, each once:
+// project_surfels_bwd_plain's formulas. SH is the static pair's code.
+
+namespace {
+
+constexpr float kSurfelNear = 0.2f;
+constexpr float kEllipseSlack = 1e-3f;
+
+// The rotation of a raw quaternion (normalized here) with what the
+// backward needs.
+struct Rot {
+  float q[4];
+  float qn, qinv;
+  float r[9];  // row-major
+};
+
+__device__ __forceinline__ void rot_of(const float* __restrict__ quat, Rot& g) {
+  float w = __ldg(quat), x = __ldg(quat + 1), y = __ldg(quat + 2), z = __ldg(quat + 3);
+  g.qn = sqrtf(w * w + x * x + y * y + z * z);
+  g.qinv = 1.0f / fmaxf(g.qn, 1e-12f);
+  w = w * g.qinv;
+  x = x * g.qinv;
+  y = y * g.qinv;
+  z = z * g.qinv;
+  g.q[0] = w;
+  g.q[1] = x;
+  g.q[2] = y;
+  g.q[3] = z;
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  g.r[0] = 1.0f - 2.0f * (yy + zz);
+  g.r[1] = 2.0f * (xy - wz);
+  g.r[2] = 2.0f * (xz + wy);
+  g.r[3] = 2.0f * (xy + wz);
+  g.r[4] = 1.0f - 2.0f * (xx + zz);
+  g.r[5] = 2.0f * (yz - wx);
+  g.r[6] = 2.0f * (xz - wy);
+  g.r[7] = 2.0f * (yz + wx);
+  g.r[8] = 1.0f - 2.0f * (xx + yy);
+}
+
+// What the surfel forward computes before the colour.
+struct SurfelGeo {
+  float x, y, z, zs;
+  bool z_small;
+  float wtu[3], wtv[3], ncam[3];  // W t_u, W t_v, W t_w
+  float su, sv;
+  float U[3], V[3];
+  float ux, uy;
+  float sign;  // the normal's turn towards the camera
+};
+
+__device__ __forceinline__ void surfel_geo(const Cam& cam, const float* m, const Rot& R,
+                                           const float* __restrict__ ls, SurfelGeo& s) {
+  const float* W = cam.r;
+  s.x = W[0] * m[0] + W[1] * m[1] + W[2] * m[2] + cam.t[0];
+  s.y = W[3] * m[0] + W[4] * m[1] + W[5] * m[2] + cam.t[1];
+  s.z = W[6] * m[0] + W[7] * m[1] + W[8] * m[2] + cam.t[2];
+  s.su = expf(__ldg(ls));
+  s.sv = expf(__ldg(ls + 1));
+  const float* r = R.r;
+  for (int i = 0; i < 3; ++i) {
+    s.wtu[i] = W[3 * i] * r[0] + W[3 * i + 1] * r[3] + W[3 * i + 2] * r[6];
+    s.wtv[i] = W[3 * i] * r[1] + W[3 * i + 1] * r[4] + W[3 * i + 2] * r[7];
+    s.ncam[i] = W[3 * i] * r[2] + W[3 * i + 1] * r[5] + W[3 * i + 2] * r[8];
+    s.U[i] = s.wtu[i] * s.su;
+    s.V[i] = s.wtv[i] * s.sv;
+  }
+  s.z_small = fabsf(s.z) < 1e-6f;
+  s.zs = s.z_small ? 1e-6f : s.z;
+  s.ux = s.x / s.zs;
+  s.uy = s.y / s.zs;
+  const float facing = s.ncam[0] * s.x + s.ncam[1] * s.y + s.ncam[2] * s.z;
+  s.sign = facing > 0.0f ? -1.0f : 1.0f;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+project_surfel_fwd_kernel(int n, int k3, bool vec, float width, float height,
+                          const float* __restrict__ means, const float* __restrict__ quats,
+                          const float* __restrict__ log_scales, const float* __restrict__ logits,
+                          const float* __restrict__ sh, const float* __restrict__ view,
+                          const float* __restrict__ Kmat, float2* __restrict__ centers,
+                          float* __restrict__ tmat, float* __restrict__ normals,
+                          float* __restrict__ depths, float* __restrict__ conics,
+                          int* __restrict__ radii, float* __restrict__ colors,
+                          float* __restrict__ opac) {
+  constexpr int kNb = (D + 1) * (D + 1), kRow = 3 * kNb, kStride = kRow | 1;
+  __shared__ float rows_s[kThreads * kStride];
+  __shared__ Cam cam;
+  const int base = blockIdx.x * kThreads;
+  const int rows = min(kThreads, n - base);
+  if (threadIdx.x == 0) load_cam(view, Kmat, width, height, cam);
+  stage_in<kRow, kStride>(sh, k3, base, rows, vec, nullptr, rows_s);
+  __syncthreads();
+  if ((int)threadIdx.x >= rows) return;
+  const int64_t i = base + threadIdx.x;
+
+  float m[3];
+  for (int k = 0; k < 3; ++k) m[k] = __ldg(means + 3 * i + k);
+  Rot R;
+  rot_of(quats + 4 * i, R);
+  SurfelGeo s;
+  surfel_geo(cam, m, R, log_scales + 2 * i, s);
+  const float fx = cam.fx, fy = cam.fy;
+  const float tu1 = fx * (s.U[0] - s.ux * s.U[2]);
+  const float tu2 = fx * (s.V[0] - s.ux * s.V[2]);
+  const float tv1 = fy * (s.U[1] - s.uy * s.U[2]);
+  const float tv2 = fy * (s.V[1] - s.uy * s.V[2]);
+  const float tw1 = s.U[2], tw2 = s.V[2], tw3 = s.z;
+  const float cx = fx * s.ux + cam.cx, cy = fy * s.uy + cam.cy;
+  const float op = sigmoid(__ldg(logits + i));
+
+  // The binning ellipse (ops/surfel.py::binning_ellipse, operation for
+  // operation).
+  const float Q = fmaxf(2.0f * (logf(255.0f * fmaxf(op, 1e-12f)) + 1e-3f), 0.0f);
+  const float d11 = Q * (tu1 * tu1 + tu2 * tu2);
+  const float d12 = Q * (tu1 * tv1 + tu2 * tv2);
+  const float d22 = Q * (tv1 * tv1 + tv2 * tv2);
+  const float d13 = Q * (tu1 * tw1 + tu2 * tw2);
+  const float d23 = Q * (tv1 * tw1 + tv2 * tw2);
+  const float d33 = Q * (tw1 * tw1 + tw2 * tw2) - tw3 * tw3;
+  const bool ok = d33 < 0.0f;
+  const float f = -1.0f / (ok ? d33 : -1.0f);
+  const float mx = -f * d13, my = -f * d23;
+  const float s11 = f * d11 + mx * mx;
+  const float s12 = f * d12 + mx * my;
+  const float s22 = f * d22 + my * my;
+  const float mm = mx * mx + my * my;
+  const float mlen = sqrtf(mm);
+  const float sig = sqrtf(fmaxf(0.5f * (s11 + s22), 1e-12f));
+  const float a = 1.0f + mlen / sig;
+  const float b = mm + mlen * sig + 0.5f * Q;
+  const float grow = 1.0f + kEllipseSlack;
+  const float e11 = (a * s11 + b) * grow;
+  const float e12 = a * s12 * grow;
+  const float e22 = (a * s22 + b) * grow;
+  const float det = e11 * e22 - e12 * e12;
+  const float det_s = det > 0.0f ? det : 1.0f;
+  const float c0 = Q * e22 / det_s, c1 = -Q * e12 / det_s, c2 = Q * e11 / det_s;
+  const float rad = ceilf(sqrtf(fmaxf(fmaxf(e11, e22), 0.0f))) + 1.0f;
+  const bool inside = cx + rad > 0.0f && cx - rad < width && cy + rad > 0.0f &&
+                      cy - rad < height;
+  const bool finite = isfinite(c0) && isfinite(c1) && isfinite(c2) && isfinite(rad) &&
+                      isfinite(cx) && isfinite(cy);
+  const bool valid = ok && tw3 > kSurfelNear && det > 0.0f && inside && finite &&
+                     rad < 16777216.0f;
+
+  centers[i] = make_float2(cx, cy);
+  float* t = tmat + 7 * i;
+  t[0] = tu1;
+  t[1] = tu2;
+  t[2] = tv1;
+  t[3] = tv2;
+  t[4] = tw1;
+  t[5] = tw2;
+  t[6] = tw3;
+  for (int k = 0; k < 3; ++k) normals[3 * i + k] = s.sign * s.ncam[k];
+  depths[i] = s.z;
+  conics[3 * i] = c0;
+  conics[3 * i + 1] = c1;
+  conics[3 * i + 2] = c2;
+  radii[i] = valid ? (int)rad : 0;
+  opac[i] = op;
+
+  float dn[3], nd;
+  view_dir(cam, m, dn, nd);
+  const float* row = rows_s + threadIdx.x * kStride;
+  float col[3] = {0.5f, 0.5f, 0.5f};
+#pragma unroll
+  for (int k = 0; k < kNb; ++k) {
+    float B, bx, by, bz;
+    basis(k, dn[0], dn[1], dn[2], B, bx, by, bz);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) col[ch] += B * row[3 * k + ch];
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) colors[3 * i + ch] = fmaxf(col[ch], 0.0f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+project_surfel_bwd_kernel(int n, int k3, bool vec_in, bool vec_out, float width, float height,
+                          const float* __restrict__ means, const float* __restrict__ quats,
+                          const float* __restrict__ log_scales, const float* __restrict__ logits,
+                          const float* __restrict__ sh, const float* __restrict__ view,
+                          const float* __restrict__ Kmat, const float* __restrict__ g_centers,
+                          const float* __restrict__ g_tmat, const float* __restrict__ g_normals,
+                          const float* __restrict__ g_colors, const float* __restrict__ g_opac,
+                          float* __restrict__ d_means, float* __restrict__ d_quats,
+                          float* __restrict__ d_log_scales, float* __restrict__ d_logits,
+                          float* __restrict__ d_sh) {
+  constexpr int kNb = (D + 1) * (D + 1), kRow = 3 * kNb, kStride = kRow | 1;
+  __shared__ float rows_s[kThreads * kStride];
+  __shared__ Cam cam;
+  __shared__ bool need_s[kThreads];
+  const int base = blockIdx.x * kThreads;
+  const int rows = min(kThreads, n - base);
+  const bool here = (int)threadIdx.x < rows;
+  const int64_t i = base + threadIdx.x;
+
+  float gcol[3] = {0.f, 0.f, 0.f};
+  if (here && g_colors != nullptr)
+    for (int ch = 0; ch < 3; ++ch) gcol[ch] = g_colors[3 * i + ch];
+  const bool need = gcol[0] != 0.f || gcol[1] != 0.f || gcol[2] != 0.f;
+  need_s[threadIdx.x] = need;
+  if (threadIdx.x == 0) load_cam(view, Kmat, width, height, cam);
+  __syncthreads();
+  stage_in<kRow, kStride>(sh, k3, base, rows, vec_in, need_s, rows_s);
+  __syncthreads();
+
+  float m[3] = {0.f, 0.f, 0.f}, gd[3] = {0.f, 0.f, 0.f};
+  if (here) {
+    for (int k = 0; k < 3; ++k) m[k] = __ldg(means + 3 * i + k);
+    float* row = rows_s + threadIdx.x * kStride;
+    if (need) {
+      float dn[3], nd;
+      view_dir(cam, m, dn, nd);
+      float raw[3] = {0.5f, 0.5f, 0.5f};
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+        float B, bx, by, bz;
+        basis(k, dn[0], dn[1], dn[2], B, bx, by, bz);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) raw[ch] += B * row[3 * k + ch];
+      }
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) gcol[ch] = raw[ch] >= 0.f ? gcol[ch] : 0.f;
+      float gdn[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+        float B, bx, by, bz;
+        basis(k, dn[0], dn[1], dn[2], B, bx, by, bz);
+        const float w = row[3 * k] * gcol[0] + row[3 * k + 1] * gcol[1] + row[3 * k + 2] * gcol[2];
+        gdn[0] += w * bx;
+        gdn[1] += w * by;
+        gdn[2] += w * bz;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) row[3 * k + ch] = B * gcol[ch];
+      }
+      const float nc = fmaxf(nd, 1e-12f);
+      const float radial = nd >= 1e-12f ? gdn[0] * dn[0] + gdn[1] * dn[1] + gdn[2] * dn[2] : 0.f;
+      for (int k = 0; k < 3; ++k) gd[k] = (gdn[k] - radial * dn[k]) / nc;
+    } else {
+      for (int e = 0; e < kRow; ++e) row[e] = 0.f;
+    }
+  }
+  __syncthreads();
+  stage_out<kRow, kStride>(d_sh, k3, base, rows, vec_out, rows_s);
+  if (!here) return;
+
+  const float gcx = g_centers ? g_centers[2 * i] : 0.f;
+  const float gcy = g_centers ? g_centers[2 * i + 1] : 0.f;
+  float gt[7], gn[3];
+  for (int k = 0; k < 7; ++k) gt[k] = g_tmat ? g_tmat[7 * i + k] : 0.f;
+  for (int k = 0; k < 3; ++k) gn[k] = g_normals ? g_normals[3 * i + k] : 0.f;
+  const float gop = g_opac ? g_opac[i] : 0.f;
+  const float op = sigmoid(__ldg(logits + i));
+  d_logits[i] = gop * op * (1.0f - op);
+
+  Rot R;
+  rot_of(quats + 4 * i, R);
+  SurfelGeo s;
+  surfel_geo(cam, m, R, log_scales + 2 * i, s);
+  const float* W = cam.r;
+  const float fx = cam.fx, fy = cam.fy;
+
+  // T and c to the camera-frame axes, the centre and (ux, uy).
+  const float g_ux = fx * gcx - fx * s.U[2] * gt[0] - fx * s.V[2] * gt[1];
+  const float g_uy = fy * gcy - fy * s.U[2] * gt[2] - fy * s.V[2] * gt[3];
+  const float gU[3] = {fx * gt[0], fy * gt[2], -fx * s.ux * gt[0] - fy * s.uy * gt[2] + gt[4]};
+  const float gV[3] = {fx * gt[1], fy * gt[3], -fx * s.ux * gt[1] - fy * s.uy * gt[3] + gt[5]};
+  const float g_zs = -(g_ux * s.x + g_uy * s.y) / (s.zs * s.zs);
+  const float gpx = g_ux / s.zs;
+  const float gpy = g_uy / s.zs;
+  const float gpz = gt[6] + (s.z_small ? 0.f : g_zs);
+
+  // U = (W t_u) s_u, V = (W t_v) s_v, n = sign W t_w.
+  float g_wtu[3], g_wtv[3], g_nc[3];
+  for (int k = 0; k < 3; ++k) {
+    g_wtu[k] = gU[k] * s.su;
+    g_wtv[k] = gV[k] * s.sv;
+    g_nc[k] = s.sign * gn[k];
+  }
+  const float g_su = s.wtu[0] * gU[0] + s.wtu[1] * gU[1] + s.wtu[2] * gU[2];
+  const float g_sv = s.wtv[0] * gV[0] + s.wtv[1] * gV[1] + s.wtv[2] * gV[2];
+  d_log_scales[2 * i] = g_su * s.su;
+  d_log_scales[2 * i + 1] = g_sv * s.sv;
+  float gr[9];
+  for (int k = 0; k < 3; ++k) {
+    gr[3 * k] = W[k] * g_wtu[0] + W[3 + k] * g_wtu[1] + W[6 + k] * g_wtu[2];
+    gr[3 * k + 1] = W[k] * g_wtv[0] + W[3 + k] * g_wtv[1] + W[6 + k] * g_wtv[2];
+    gr[3 * k + 2] = W[k] * g_nc[0] + W[3 + k] * g_nc[1] + W[6 + k] * g_nc[2];
+  }
+  const float qw = R.q[0], qx = R.q[1], qy = R.q[2], qz = R.q[3];
+  float gq[4];
+  gq[0] = 2.0f * (-qz * gr[1] + qy * gr[2] + qz * gr[3] - qx * gr[5] - qy * gr[6] + qx * gr[7]);
+  gq[1] = 2.0f * (qy * gr[1] + qz * gr[2] + qy * gr[3] - 2.0f * qx * gr[4] - qw * gr[5] +
+                  qz * gr[6] + qw * gr[7] - 2.0f * qx * gr[8]);
+  gq[2] = 2.0f * (-2.0f * qy * gr[0] + qx * gr[1] + qw * gr[2] + qx * gr[3] + qz * gr[5] -
+                  qw * gr[6] + qz * gr[7] - 2.0f * qy * gr[8]);
+  gq[3] = 2.0f * (-2.0f * qz * gr[0] - qw * gr[1] + qx * gr[2] + qw * gr[3] - 2.0f * qz * gr[4] +
+                  qy * gr[5] + qx * gr[6] + qy * gr[7]);
+  const float along = R.qn >= 1e-12f ? gq[0] * qw + gq[1] * qx + gq[2] * qy + gq[3] * qz : 0.f;
+  for (int k = 0; k < 4; ++k) d_quats[4 * i + k] = (gq[k] - along * R.q[k]) * R.qinv;
+  for (int k = 0; k < 3; ++k)
+    d_means[3 * i + k] = W[k] * gpx + W[3 + k] * gpy + W[6 + k] * gpz + gd[k];
+}
+
+template <int D>
+int launch_surfel_fwd(int n, int k3, float width, float height, const float* const* in,
+                      void* const* out, cudaStream_t stream) {
+  constexpr int kRow = 3 * (D + 1) * (D + 1);
+  const bool vec = kRow % 4 == 0 && k3 % 4 == 0 && (uintptr_t)in[4] % 16 == 0;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  project_surfel_fwd_kernel<D><<<blocks, kThreads, 0, stream>>>(
+      n, k3, vec, width, height, in[0], in[1], in[2], in[3], in[4], in[5], in[6],
+      (float2*)out[0], (float*)out[1], (float*)out[2], (float*)out[3], (float*)out[4],
+      (int*)out[5], (float*)out[6], (float*)out[7]);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_surfel_bwd(int n, int k3, float width, float height, const float* const* in,
+                      const float* const* gin, float* const* out, cudaStream_t stream) {
+  constexpr int kRow = 3 * (D + 1) * (D + 1);
+  const bool vec_in = kRow % 4 == 0 && k3 % 4 == 0 && (uintptr_t)in[4] % 16 == 0;
+  const bool vec_out = k3 % 4 == 0 && (uintptr_t)out[4] % 16 == 0;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  project_surfel_bwd_kernel<D><<<blocks, kThreads, 0, stream>>>(
+      n, k3, vec_in, vec_out, width, height, in[0], in[1], in[2], in[3], in[4], in[5], in[6],
+      gin[0], gin[1], gin[2], gin[3], gin[4], out[0], out[1], out[2], out[3], out[4]);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Inputs: means (n, 3), quats (n, 4), log_scales (n, 2), logits (n,), sh (n,
+// kb, 3) float32 contiguous, viewmat (4, 4), K (3, 3); kb >= (degree + 1)^2.
+// Outputs: centers (n, 2), tmat (n, 7), normals (n, 3), depths (n,), conics
+// (n, 3), radii (n,) int32, colors (n, 3), opacities (n,).
+extern "C" int gs_project_surfel_fwd(int n, int kb, int degree, float width, float height,
+                                     const void* means, const void* quats,
+                                     const void* log_scales, const void* logits,
+                                     const void* sh, const void* view, const void* K,
+                                     void* centers, void* tmat, void* normals, void* depths,
+                                     void* conics, void* radii, void* colors, void* opac,
+                                     void* stream) {
+  if (n <= 0 || kb < (degree + 1) * (degree + 1)) return (int)cudaErrorInvalidValue;
+  const float* in[7] = {(const float*)means, (const float*)quats, (const float*)log_scales,
+                        (const float*)logits, (const float*)sh, (const float*)view,
+                        (const float*)K};
+  void* out[8] = {centers, tmat, normals, depths, conics, radii, colors, opac};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int k3 = 3 * kb;
+  switch (degree) {
+    case 0: return launch_surfel_fwd<0>(n, k3, width, height, in, out, st);
+    case 1: return launch_surfel_fwd<1>(n, k3, width, height, in, out, st);
+    case 2: return launch_surfel_fwd<2>(n, k3, width, height, in, out, st);
+    case 3: return launch_surfel_fwd<3>(n, k3, width, height, in, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The forward's inputs; the cotangents of centers, tmat, normals, colors and
+// opacities (a null pointer is zero); the gradients of means, quats,
+// log_scales, logits and sh, every element written.
+extern "C" int gs_project_surfel_bwd(int n, int kb, int degree, float width, float height,
+                                     const void* means, const void* quats,
+                                     const void* log_scales, const void* logits,
+                                     const void* sh, const void* view, const void* K,
+                                     const void* g_centers, const void* g_tmat,
+                                     const void* g_normals, const void* g_colors,
+                                     const void* g_opac, void* d_means, void* d_quats,
+                                     void* d_log_scales, void* d_logits, void* d_sh,
+                                     void* stream) {
+  if (n <= 0 || kb < (degree + 1) * (degree + 1)) return (int)cudaErrorInvalidValue;
+  const float* in[7] = {(const float*)means, (const float*)quats, (const float*)log_scales,
+                        (const float*)logits, (const float*)sh, (const float*)view,
+                        (const float*)K};
+  const float* gin[5] = {(const float*)g_centers, (const float*)g_tmat,
+                         (const float*)g_normals, (const float*)g_colors,
+                         (const float*)g_opac};
+  float* out[5] = {(float*)d_means, (float*)d_quats, (float*)d_log_scales, (float*)d_logits,
+                   (float*)d_sh};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int k3 = 3 * kb;
+  switch (degree) {
+    case 0: return launch_surfel_bwd<0>(n, k3, width, height, in, gin, out, st);
+    case 1: return launch_surfel_bwd<1>(n, k3, width, height, in, gin, out, st);
+    case 2: return launch_surfel_bwd<2>(n, k3, width, height, in, gin, out, st);
+    case 3: return launch_surfel_bwd<3>(n, k3, width, height, in, gin, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

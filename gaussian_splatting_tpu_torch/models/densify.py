@@ -9,7 +9,9 @@ change of shape:
   in ascending order;
 - split: high-gradient large gaussians become two children at scale / 1.6
   with positional noise ~ N(0, child scale): child 1 reuses the parent's
-  slot, child 2 takes the free slot after the clones';
+  slot, child 2 takes the free slot after the clones'. Surfels (two scales
+  a row) draw the noise in their tangent plane, s_u n_1 t_u + s_v n_2 t_v at
+  the child's scales, their third standard deviation 0;
 - population cap: when clones + splits would exceed ``max_gaussians`` (or
   the capacity), only the highest-gradient candidates are kept, ranked by
   a stable sort of the negated gradient;
@@ -34,6 +36,7 @@ from gaussian_splatting_tpu_torch.core.activations import (
     opacity_inverse_activation,
     scale_activation,
 )
+from gaussian_splatting_tpu_torch.core.quaternions import quat_normalize, quat_to_rotmat
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
     GaussianParams,
@@ -185,8 +188,18 @@ def densify_and_prune(
     parent_means = p.means[src_c]
     d1 = torch.where(split_valid, split_src, C)
     d2 = torch.where(split_valid, child2_dst, C)
-    params.means = _set_rows(_set_rows(params.means, d1, parent_means + n1 * child_scales),
-                             d2, parent_means + n2 * child_scales)
+    if p.surfels:
+        rot = quat_to_rotmat(quat_normalize(p.quats[src_c]))
+        tu = rot[:, :, 0] * child_scales[:, :1]
+        tv = rot[:, :, 1] * child_scales[:, 1:2]
+
+        def offset(n):
+            return tu * n[:, :1] + tv * n[:, 1:2]
+    else:
+        def offset(n):
+            return n * child_scales
+    params.means = _set_rows(_set_rows(params.means, d1, parent_means + offset(n1)),
+                             d2, parent_means + offset(n2))
     params.log_scales = _set_rows(_set_rows(params.log_scales, d1, child_log_scales),
                                   d2, child_log_scales)
     for dst in (split_src, child2_dst):

@@ -6,7 +6,9 @@ slots render with opacity ~0; densification fills free slots
 (``models/densify.py``) and the trainer grows the buffers when they are
 nearly full (``grow_capacity``). Raw parameterization: log-space scales,
 logit-space opacity, w-first unnormalized quaternions, SH split into dc
-(C, 1, 3) + rest (C, 15, 3).
+(C, 1, 3) + rest (C, 15, 3). A surfel scene (2D Gaussian Splatting,
+``ops/surfel.py``) has two log-scales a row, (C, 2): the shape says what the
+scene holds, in every buffer, checkpoint and PLY.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ class GaussianParams:
 
     means: torch.Tensor            # (C, 3)
     quats: torch.Tensor            # (C, 4) w-first, unnormalized
-    log_scales: torch.Tensor       # (C, 3)
+    log_scales: torch.Tensor       # (C, 3), (C, 2) for surfels
     logit_opacities: torch.Tensor  # (C, 1)
     features_dc: torch.Tensor      # (C, 1, 3)
     features_rest: torch.Tensor    # (C, 15, 3)
@@ -41,6 +43,11 @@ class GaussianParams:
     @property
     def capacity(self) -> int:
         return self.means.shape[0]
+
+    @property
+    def surfels(self) -> bool:
+        """Whether the scene holds surfels (two scales a row)."""
+        return self.log_scales.shape[-1] == 2
 
     @property
     def sh_coeffs(self) -> torch.Tensor:
@@ -75,7 +82,9 @@ def _round_capacity(n: int, multiple: int = 2048) -> int:
 
 
 def empty_state(capacity: int, device: DeviceLike = None,
-                dtype: torch.dtype = torch.float32) -> GaussianState:
+                dtype: torch.dtype = torch.float32, surfels: bool = False) -> GaussianState:
+    """An all-dead buffer of ``capacity`` slots; ``surfels`` gives two
+    log-scales a row."""
     C = capacity
     dev = resolve_device(device)
 
@@ -86,7 +95,7 @@ def empty_state(capacity: int, device: DeviceLike = None,
     quats[:, 0] = 1.0
     params = GaussianParams(
         means=z(C, 3), quats=quats,
-        log_scales=torch.full((C, 3), -3.0, dtype=dtype, device=dev),
+        log_scales=torch.full((C, 2 if surfels else 3), -3.0, dtype=dtype, device=dev),
         logit_opacities=z(C, 1), features_dc=z(C, 1, 3),
         features_rest=z(C, 15, 3))
     return GaussianState(params=params, alive=z(C, dt=torch.bool),
@@ -129,15 +138,16 @@ def state_from_numpy(arrays: Dict[str, np.ndarray],
 
 def init_random(n: int, capacity: Optional[int] = None, seed: int = 0,
                 generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> GaussianState:
+                device: DeviceLike = None, surfels: bool = False) -> GaussianState:
     """Random init fallback (``models/gaussians.py:106`` of the JAX
     package): ``n`` alive gaussians with standard-normal means and opacity
     0.005 in a buffer of ``capacity`` (default 1.5 n rounded up to 2048).
     The means come from ``generator`` (default: one on ``device`` seeded
-    with ``seed``); ``jax.random`` streams are not reproduced."""
+    with ``seed``); ``jax.random`` streams are not reproduced. ``surfels``
+    makes surfels (identity rotations)."""
     dev = resolve_device(device)
     C = capacity or _round_capacity(int(n * 1.5))
-    state = empty_state(C, dev)
+    state = empty_state(C, dev, surfels=surfels)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     p = state.params
@@ -161,13 +171,16 @@ def knn_mean_distance(points: np.ndarray, queries: np.ndarray, k: int = 7) -> np
 def init_from_points(points: np.ndarray, colors: Optional[np.ndarray], n_gaussians: int,
                      capacity: Optional[int] = None, seed: int = 0,
                      init_opacity: float = 0.005, jitter: float = 1e-3,
-                     device: DeviceLike = None) -> GaussianState:
+                     device: DeviceLike = None, surfels: bool = False) -> GaussianState:
     """Initialize from a point cloud (``models/gaussians.py:135`` of the
     JAX package, the same numpy draws from ``default_rng(seed)``): sample
     points (with replacement when oversampling), add positional jitter,
     RGB -> SH0 DC coefficients, kNN-7 mean-distance isotropic scales,
     opacity ``init_opacity``, identity rotations, in a buffer of
-    ``capacity`` (default 1.5 n rounded up to 2048) on ``device``."""
+    ``capacity`` (default 1.5 n rounded up to 2048) on ``device``.
+    ``surfels`` makes surfels: two scales a row and, after the draws above,
+    quaternions of uniform [0, 1) components (the published 2DGS
+    initialisation's random orientations)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_pts = len(points)
@@ -180,10 +193,10 @@ def init_from_points(points: np.ndarray, colors: Optional[np.ndarray], n_gaussia
     pos = points[idx] + rng.normal(size=(n_gaussians, 3)) * jitter
 
     scales = np.clip(knn_mean_distance(points.astype(np.float64), pos, k=7), 1e-9, None)
-    log_scales = np.log(scales)[:, None].repeat(3, axis=1)
+    log_scales = np.log(scales)[:, None].repeat(2 if surfels else 3, axis=1)
 
     C = capacity or _round_capacity(int(n_gaussians * 1.5))
-    state = empty_state(C, dev)
+    state = empty_state(C, dev, surfels=surfels)
     p = state.params
     n = n_gaussians
     p.means[:n] = torch.as_tensor(np.asarray(pos, np.float32), device=dev)
@@ -193,6 +206,8 @@ def init_from_points(points: np.ndarray, colors: Optional[np.ndarray], n_gaussia
     if colors is not None and len(colors) > 0:
         p.features_dc[:n, 0, :] = rgb_to_sh0(
             torch.as_tensor(np.asarray(colors[idx], np.float32), device=dev))
+    if surfels:
+        p.quats[:n] = torch.as_tensor(rng.random((n, 4)).astype(np.float32), device=dev)
     state.alive[:n] = True
     return state
 

@@ -76,11 +76,11 @@ def _cumprod_sequential(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _plain_batches(counts: torch.Tensor, chunk: int, P: int):
+def _plain_batches(counts: torch.Tensor, chunk: int, P: int, elems: int = _PLAIN_ELEMS):
     """The tile batches of the plain sweeps: ``(tiles, longest)`` with the
     tiles in descending order of their counts, so that a batch holds tiles
     of like length, and each batch's (tiles, P, K) temporaries within
-    ``_PLAIN_ELEMS``, K its longest count cut to the chunk. A chunk's
+    ``elems``, K its longest count cut to the chunk. A chunk's
     entries past every count of the batch carry nothing (alpha 0, the
     products unchanged), so the sweeps take K = min(chunk, what is left of
     the longest count) entries of each chunk."""
@@ -89,7 +89,7 @@ def _plain_batches(counts: torch.Tensor, chunk: int, P: int):
     i = 0
     while i < len(cnt):
         k = max(1, min(chunk, cnt[i]))
-        n = max(1, min(_PLAIN_TILE_BATCH, _PLAIN_ELEMS // (P * k)))
+        n = max(1, min(_PLAIN_TILE_BATCH, elems // (P * k)))
         yield order[i:i + n], cnt[i]
         i += n
 

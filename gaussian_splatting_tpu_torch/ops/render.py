@@ -28,6 +28,10 @@ from gaussian_splatting_tpu_torch.ops.rasterize_ref import rasterize_reference
 from gaussian_splatting_tpu_torch.utils import profiling
 
 BACKENDS = ("auto", "ref", "cuda")
+SURFELS_POSE = (
+    "surfels with pose refinement: the surfel projection pair takes no gradient of the "
+    "view yet (its backward would also need dT/dW and dc/dt); refine poses on a 3D "
+    "gaussian scene")
 
 
 class RenderOut(NamedTuple):
@@ -38,6 +42,12 @@ class RenderOut(NamedTuple):
     radii: torch.Tensor       # (N,)
     visibility: torch.Tensor  # (N,) bool, radius > 0
     stats: Optional[dict] = None  # overflow counters (cuda backend only)
+    # Surfels (2D Gaussian Splatting, ``ops/surfel.py``) only: the (H, W, 3)
+    # view-space normal sum w n, the (H, W) median depth (no gradient) and
+    # the (H, W) depth distortion.
+    normal: Optional[torch.Tensor] = None
+    median_depth: Optional[torch.Tensor] = None
+    distortion: Optional[torch.Tensor] = None
 
 
 def resolve_backend(backend: str) -> str:
@@ -87,13 +97,31 @@ def render(
     differentiated; ``sort_buckets`` and ``bucket_headroom`` bin through the
     bucket partition (see ``rasterize_cuda.rasterize_tiled``). ``offsets``
     ``(dx, dr, ds)``, tensors on ``device``, deform the gaussians after the
-    activations (``project_and_shade``)."""
+    activations (``project_and_shade``).
+
+    Parameters with two log-scales a row are surfels (2D Gaussian
+    Splatting): ``render_surfels`` renders them, and the output also holds
+    the normal, median depth and distortion maps."""
     backend = resolve_backend(backend)
     dev = resolve_device(device)
 
     def on_dev(x):  # tensors move; anything else is copied (numpy may be read-only)
         x = x if torch.is_tensor(x) else np.array(x, np.float32)
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    if np.shape(log_scales)[-1] == 2:
+        if offsets is not None or rasterize_mode != "classic":
+            raise NotImplementedError(
+                "surfels render in the classic mode without deformation offsets")
+        return render_surfels(
+            *(on_dev(x) for x in (means, quats, log_scales, logit_opacities, sh_coeffs,
+                                  viewmat, K)),
+            width, height, sh_degree=sh_degree, bg=None if bg is None else on_dev(bg),
+            render_mode=render_mode, backend=backend, tile_size=tile_size,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, raster_chunk=raster_chunk,
+            class_budgets=class_budgets, depth_bits=depth_bits, sort_buckets=sort_buckets,
+            bucket_headroom=bucket_headroom, sort_bands=sort_bands, with_stats=with_stats,
+            grad_buffer_frac=grad_buffer_frac, reduce_slices=reduce_slices)
 
     proj, colors, opac = project_and_shade(
         *(on_dev(x) for x in (means, quats, log_scales, logit_opacities, sh_coeffs,
@@ -132,6 +160,56 @@ def render(
         visibility=proj.radii > 0,
         stats=stats,
     )
+
+
+def render_surfels(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat, K,
+                   width: int, height: int, sh_degree: int = 3, bg=None,
+                   render_mode: str = "RGB", backend: str = "cuda", tile_size: int = 16,
+                   max_tiles_per_gaussian: int = 16, raster_chunk: int = 256,
+                   class_budgets=None, depth_bits: int = 0, sort_buckets: int = 0,
+                   bucket_headroom: float = 1.5, sort_bands: int = 0,
+                   with_stats: bool = False, grad_buffer_frac: float = 1.0,
+                   reduce_slices: int = 0) -> RenderOut:
+    """One view of surfels (tensors on one device, log_scales (N, 2)):
+    ``ops/surfel.py``'s projection pair (span ``render.project_sh`` and its
+    backward ``render.project_sh.bwd``) and its binning and raster kernels
+    on the ``cuda`` backend, ``models/surfel_ref.py`` on ``ref``. ``means2d``
+    of the output is the projected centres."""
+    from gaussian_splatting_tpu_torch.ops.surfel import project_surfels, rasterize_surfels
+
+    if torch.is_grad_enabled() and (viewmat.requires_grad or K.requires_grad):
+        raise NotImplementedError(SURFELS_POSE)
+    if resolve_backend(backend) == "ref":
+        from gaussian_splatting_tpu_torch.models import surfel_ref
+
+        p = surfel_ref.project(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat,
+                               K, width, height, sh_degree)
+        img = surfel_ref.blend(p, width, height, tile_size, raster_chunk)
+        centers, radii, stats = p.centers, p.radii, None
+        if bg is not None:
+            img = torch.cat([img[..., :3] + (1.0 - img[..., 4])[..., None] * bg, img[..., 3:]],
+                            dim=-1)
+    else:
+        with profiling.annotate("render.project_sh"):
+            mark = profiling.grad_span("render.project_sh.bwd")
+            p = project_surfels(means, quats, mark.input(log_scales), logit_opacities.reshape(-1),
+                                sh_coeffs, viewmat, K, width, height, sh_degree)
+            centers, tmat, normals, colors, opac = mark.outputs(
+                p.centers, p.tmat, p.normals, p.colors, p.opac)
+            p = p._replace(centers=centers, tmat=tmat, normals=normals, colors=colors, opac=opac)
+        img, stats = rasterize_surfels(
+            p, width, height, bg=bg, tile_size=tile_size, chunk=raster_chunk,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, class_budgets=class_budgets,
+            depth_bits=depth_bits, sort_buckets=sort_buckets, sort_bands=sort_bands,
+            grad_buffer_frac=grad_buffer_frac, reduce_slices=reduce_slices,
+            bucket_headroom=bucket_headroom)
+        centers, radii = p.centers, p.radii
+    rgb, depth, alpha = img[..., :3], img[..., 3], img[..., 4]
+    return RenderOut(
+        render=compose_render_mode(render_mode, rgb, alpha, depth), alpha=alpha, depth=depth,
+        means2d=centers, radii=radii, visibility=radii > 0,
+        stats=stats if with_stats else None, normal=img[..., 5:8], median_depth=img[..., 9],
+        distortion=img[..., 8])
 
 
 def project_and_shade(means, quats, log_scales, logit_opacities, sh_coeffs,

@@ -708,9 +708,14 @@ def isect_and_sort(
     sort_buckets: int = 0,
     sort_bands: int = 0,
     bucket_headroom: float = 1.5,
+    records: Optional[torch.Tensor] = None,
 ) -> TileBinning:
     """Bin and depth-sort N screen-space gaussians into the kernel-ready
     SoA and per-tile segment tables. Not differentiable by itself.
+
+    ``records`` replaces the (N, 10) ``quantity_records`` the SoA gathers
+    (surfels pack their own, ``ops/surfel.py``); the binning reads only
+    ``means2d``, ``conics``, ``opacities``, ``radii`` and ``depths``.
 
     ``class_budgets=None`` selects the dense (max_t, N) slot layout; a
     tuple of per-class gaussian budgets (one per ``class_caps(max_t)``)
@@ -733,7 +738,8 @@ def isect_and_sort(
     if N >= (1 << 24):
         raise ValueError("gaussian ids must be exact in float32 (N < 2^24)")
     max_t = max_tiles_per_gaussian
-    records = quantity_records(means2d, conics, colors, opacities, depths)
+    if records is None:
+        records = quantity_records(means2d, conics, colors, opacities, depths)
     geometry = tuple(x.contiguous() for x in (means2d, conics, opacities, radii, depths))
     if sort_bands > 1:
         if sort_buckets:

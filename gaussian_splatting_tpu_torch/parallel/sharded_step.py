@@ -268,6 +268,10 @@ DEFORM_ON_MESH = (
     "Deformable 3D Gaussians on a mesh: the sharded step has no deformation MLP yet (its "
     "weights replicated on every rank with an all-reduce of their gradients, the offsets of "
     "each rank's ZeRO rows, the time of each rank's views); train with deform on one device")
+SURFELS_ON_MESH = (
+    "2D Gaussian Splatting (surfels) on a mesh: the sharded step has no surfel render yet "
+    "(its image bands would need the surfel kernels, the rendered maps' bands and the "
+    "normal term's depth differences across band edges); train with surfels on one device")
 
 
 def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: int,
@@ -280,10 +284,13 @@ def make_sharded_train_step(config, mesh, width: int, height: int, sh_degree: in
     renders views [d B/D, (d+1) B/D) at rows [m band_h, (m+1) band_h). The
     state's tensors are updated in place; the metrics, keyed as the
     single-device step's, are reduced over the mesh and the same on every
-    rank. The deformation (``config.deform``) is not sharded yet and
-    raises ``NotImplementedError``."""
+    rank. The deformation (``config.deform``) and surfels
+    (``config.surfels``) are not sharded yet and raise
+    ``NotImplementedError``."""
     if getattr(config, "deform", False):
         raise NotImplementedError(DEFORM_ON_MESH)
+    if getattr(config, "surfels", False):
+        raise NotImplementedError(SURFELS_ON_MESH)
     backend = resolve_backend(backend)
     D, M = mesh.shape["data"], mesh.shape["model"]
     d, m = mesh.coord

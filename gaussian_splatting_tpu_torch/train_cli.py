@@ -80,6 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "each frame's time (a dynamic scene; one device)")
     p.add_argument("--deform-warmup", type=int, default=None,
                    help="static iterations before the deformation starts")
+    p.add_argument("--surfels", action="store_true",
+                   help="2D Gaussian Splatting: flat surfels with the depth-distortion and "
+                        "normal-consistency terms, for depth, normals and surfaces (one device)")
     p.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-model", type=int, default=None)
@@ -119,6 +122,8 @@ def config_from_args(args):
         overrides["optimize_poses"] = True
     if getattr(args, "deform", False):
         overrides["deform"] = True
+    if getattr(args, "surfels", False):
+        overrides["surfels"] = True
     return dataclasses.replace(cfg, **overrides)
 
 

@@ -8,8 +8,8 @@ mesh (``mesh_data * mesh_tile > 1``) trains through
 ``parallel/sharded_step.py``, one process a device. The video fields
 (``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) are read by
 the train CLI and ``eval_num_views`` by the eval CLI. The ``deform_*``
-fields (Deformable 3D Gaussians) are the port's own; the JAX package has
-no deformation."""
+fields (Deformable 3D Gaussians) and the ``surfel*`` fields (2D Gaussian
+Splatting) are the port's own; the JAX package has neither."""
 
 import dataclasses
 from typing import List, Optional
@@ -132,6 +132,18 @@ class TrainingConfig:
     deform: bool = False
     # Iterations of static warm-up before the MLP runs.
     deform_warmup: int = 3000
+
+    # --- 2D Gaussian Splatting (surfels, ops/surfel.py; the port only):
+    # flat gaussian discs with two scales, rendered by ray-splat
+    # intersection, with the depth-distortion and normal-consistency
+    # terms. Off by default. The published settings for unbounded scenes;
+    # the terms' start iterations are the published constants of
+    # training/loss.py. Not on a mesh, with deform or with pose refinement.
+    surfels: bool = False
+    surfel_lambda_dist: float = 100.0
+    surfel_lambda_normal: float = 0.05
+    # 0: the surface depth is the expected depth; 1: the median depth.
+    surfel_depth_ratio: float = 0.0
     capacity_headroom: float = 1.5     # buffer capacity / population target
     # The JAX step donates its buffers; the port's step updates the state in
     # place either way.

@@ -2,7 +2,9 @@
 ``gaussian_splatting_tpu/training/export.py``, the same bytes): binary
 little-endian, fields x, y, z, nx, ny, nz (= 0), f_dc_0..2, opacity (raw
 logit), scale_0..2 (raw log), rot_0..3 (raw quaternion), f_rest_0..44
-(``features_rest.reshape(N, -1)`` order, coefficient-major).
+(``features_rest.reshape(N, -1)`` order, coefficient-major). A surfel
+scene (2D Gaussian Splatting, two log-scales a row) writes scale_0 and
+scale_1 only.
 
 Plain numpy: the header and the packed body follow the PLY 1.0 spec, so
 either package reads what the other wrote.
@@ -12,11 +14,13 @@ from __future__ import annotations
 
 import numpy as np
 
-_PROPS = (
-    ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2", "opacity",
-     "scale_0", "scale_1", "scale_2", "rot_0", "rot_1", "rot_2", "rot_3"]
-    + [f"f_rest_{i}" for i in range(45)]
-)
+def _props(n_scales: int = 3):
+    return (["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2", "opacity"]
+            + [f"scale_{i}" for i in range(n_scales)] + ["rot_0", "rot_1", "rot_2", "rot_3"]
+            + [f"f_rest_{i}" for i in range(45)])
+
+
+_PROPS = _props()
 
 
 def write_ply(
@@ -25,10 +29,11 @@ def write_ply(
     features_dc: np.ndarray,    # (N, 1, 3) or (N, 3)
     features_rest: np.ndarray,  # (N, 15, 3) (zero-padded/clipped to 45 floats)
     logit_opacities: np.ndarray,  # (N, 1) raw logits
-    log_scales: np.ndarray,     # (N, 3) raw log scales
+    log_scales: np.ndarray,     # (N, 3) raw log scales, (N, 2) for surfels
     quats: np.ndarray,          # (N, 4) raw (unnormalized) w-first quats
 ) -> None:
     N = means.shape[0]
+    n_scales = np.shape(log_scales)[-1] if N else 3
     fdc = np.asarray(features_dc, np.float32).reshape(N, -1)[:, :3]
     fr = np.asarray(features_rest, np.float32).reshape(N, -1)
     if fr.shape[1] >= 45:
@@ -42,7 +47,7 @@ def write_ply(
             np.zeros((N, 3), np.float32),
             fdc,
             np.asarray(logit_opacities, np.float32).reshape(N, 1),
-            np.asarray(log_scales, np.float32).reshape(N, 3),
+            np.asarray(log_scales, np.float32).reshape(N, n_scales),
             np.asarray(quats, np.float32).reshape(N, 4),
             fr,
         ],
@@ -52,7 +57,7 @@ def write_ply(
     header = (
         "ply\nformat binary_little_endian 1.0\n"
         f"element vertex {N}\n"
-        + "".join(f"property float {p}\n" for p in _PROPS)
+        + "".join(f"property float {p}\n" for p in _props(n_scales))
         + "end_header\n"
     )
     with open(path, "wb") as f:
@@ -93,7 +98,7 @@ def read_ply(path: str) -> dict:
         "means": stack(["x", "y", "z"]),
         "features_dc": stack(["f_dc_0", "f_dc_1", "f_dc_2"]).reshape(n, 1, 3),
         "logit_opacities": cols["opacity"].reshape(n, 1),
-        "log_scales": stack(["scale_0", "scale_1", "scale_2"]),
+        "log_scales": stack([p for p in ("scale_0", "scale_1", "scale_2") if p in cols]),
         "quats": stack(["rot_0", "rot_1", "rot_2", "rot_3"]),
     }
     rest_names = [p for p in props if p.startswith("f_rest_")]

@@ -1,6 +1,8 @@
 """Losses (counterpart of ``gaussian_splatting_tpu/training/loss.py``): the
 L1 + DSSIM photometric objective on a straight-through-clamped render, PSNR,
-and the scale-anisotropy hinge regularizer."""
+and the scale-anisotropy hinge regularizer; for surfels (2D Gaussian
+Splatting, the port only) the normal-consistency and depth-distortion terms
+(``surfel_terms``) and the published iterations they start at."""
 
 from __future__ import annotations
 
@@ -8,6 +10,11 @@ import torch
 import torch.nn.functional as F
 
 from gaussian_splatting_tpu_torch.core.activations import scale_activation
+
+# The published 2DGS schedule: the distortion term from iteration 3000, the
+# normal term from 7000 (of the port's iteration counter, which starts at 0).
+SURFEL_DIST_FROM = 3000
+SURFEL_NORMAL_FROM = 7000
 
 
 def stclamp(x: torch.Tensor) -> torch.Tensor:
@@ -87,3 +94,39 @@ def scale_ratio_reg(log_scales: torch.Tensor, alive: torch.Tensor, max_ratio: fl
     alive_f = alive.to(log_scales.dtype)
     n = alive_f.sum() if n_alive is None else n_alive
     return weight * (hinge * alive_f).sum() / torch.clamp_min(n, 1.0)
+
+
+def depth_to_normal(viewmat: torch.Tensor, K: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) world-space normals of a (H, W) depth map (2DGS's
+    ``depth_to_normal``): each pixel centre's ray ((x + 0.5 - cx) / fx, (y +
+    0.5 - cy) / fy, 1) (K^-1 of the port's zero-skew intrinsics, without a
+    matrix inverse, which would wait for the device) times its depth, to the
+    world; central differences down the rows and along the columns; their
+    cross product normalized; zero on the border."""
+    H, W = depth.shape
+    dev = depth.device
+    xs = (torch.arange(W, device=dev, dtype=torch.float32) + 0.5 - K[0, 2]) / K[0, 0]
+    ys = (torch.arange(H, device=dev, dtype=torch.float32) + 0.5 - K[1, 2]) / K[1, 1]
+    cam = torch.stack([depth * xs[None, :], depth * ys[:, None], depth], dim=-1)
+    pts = (cam - viewmat[:3, 3]) @ viewmat[:3, :3]
+    dx = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    dy = pts[1:-1, 2:] - pts[1:-1, :-2]
+    n = F.normalize(torch.cross(dx, dy, dim=-1), dim=-1)
+    return F.pad(n.permute(2, 0, 1), (1, 1, 1, 1)).permute(1, 2, 0)
+
+
+def surfel_terms(maps: torch.Tensor, viewmat: torch.Tensor, K: torch.Tensor,
+                 depth_ratio: float = 0.0, median: torch.Tensor = None):
+    """(normal consistency, distortion) of one surfel view. ``maps`` (H, W,
+    6) holds the view-space normal sum (3), the expected depth sum, the
+    alpha and the distortion. The normal term is mean(1 - n . N_s): n the
+    rendered normal in world space, N_s the normal of the surface depth
+    (expected depth / alpha, blended with ``median`` at ``depth_ratio`` >
+    0) times the detached alpha. The distortion term is the map's mean."""
+    normal, depth, alpha, dist = maps[..., :3], maps[..., 3], maps[..., 4], maps[..., 5]
+    surf = depth / torch.clamp_min(alpha, 1e-10)
+    if depth_ratio != 0.0:
+        surf = (1.0 - depth_ratio) * surf + depth_ratio * median
+    ns = depth_to_normal(viewmat, K, surf) * alpha.detach()[..., None]
+    n_world = normal @ viewmat[:3, :3]
+    return (1.0 - (n_world * ns).sum(-1)).mean(), dist.mean()

@@ -5,12 +5,16 @@ per-group Adam, the scale ceiling, the densify accumulators and optional
 camera-pose refinement. With a deformation network in the state and times
 in the batch (Deformable 3D Gaussians, ``models/deform.py``) each view first
 runs the MLP over the alive slots at its time and renders the gaussians
-moved by its offsets; the network takes a seventh Adam group. Everything
-after the backward is ``apply_gradients``, which the sharded step
-(``parallel/sharded_step.py``) runs too. Spans
-(``utils/profiling``): ``step.loss`` and its backward ``step.loss.bwd`` a
-view, ``step.backward``, ``step.adam`` and inside it ``step.adam.deform``;
-the MLP's own are ``models/deform.py``'s.
+moved by its offsets; the network takes a seventh Adam group. A surfel
+scene (2D Gaussian Splatting, two scales a row) adds per view, after the
+photometric loss, the normal-consistency and depth-distortion terms at the
+configuration's weights, each zero before its published start iteration
+(``training/loss.py``). Everything after the backward is
+``apply_gradients``, which the sharded step (``parallel/sharded_step.py``)
+runs too. Spans (``utils/profiling``): ``step.loss`` and its backward
+``step.loss.bwd`` a view, for surfels ``step.surfel_reg`` and its backward
+``step.surfel_reg.bwd`` a view, ``step.backward``, ``step.adam`` and inside
+it ``step.adam.deform``; the MLP's own are ``models/deform.py``'s.
 
 PyTorch runs eagerly: a Python loop over the batch takes the place of the
 JAX ``lax.scan``, and the step updates the state's tensors in place (no copy
@@ -34,7 +38,13 @@ from gaussian_splatting_tpu_torch.models.gaussians import (
     GaussianState,
 )
 from gaussian_splatting_tpu_torch.ops.render import render, resolve_backend
-from gaussian_splatting_tpu_torch.training.loss import photometric_loss, scale_ratio_reg
+from gaussian_splatting_tpu_torch.training.loss import (
+    SURFEL_DIST_FROM,
+    SURFEL_NORMAL_FROM,
+    photometric_loss,
+    scale_ratio_reg,
+    surfel_terms,
+)
 from gaussian_splatting_tpu_torch.training.optimizer import (
     AdamState,
     adam_bias_corrections,
@@ -167,7 +177,9 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
     a metrics dict of 0-dim tensors, keyed as the JAX step's (l1, ssim,
     psnr, scale_reg, loss, xyz_lr, grad_norm/<group>, stats/<counter> on the
     cuda backend, pose_lr, grad_norm/poses, pose/delta_max when poses are
-    refined, and deform_lr, grad_norm/deform when the gaussians deform)."""
+    refined, deform_lr, grad_norm/deform when the gaussians deform, and
+    surfel/normal, surfel/dist (the unweighted terms' batch means) for
+    surfels)."""
     dev = resolve_device(device)
     backend = resolve_backend(backend)
     optimize_poses = bool(config.optimize_poses)
@@ -182,13 +194,25 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                            rows=torch.nonzero(alive).reshape(-1))
         return rows_of["rows"]
 
+    def surfel_weights(iteration: torch.Tensor):
+        """The normal and distortion terms' weights, zero before each
+        term's start, as device scalars (no host read)."""
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return (torch.where(iteration >= SURFEL_NORMAL_FROM,
+                            zero + config.surfel_lambda_normal, zero),
+                torch.where(iteration >= SURFEL_DIST_FROM,
+                            zero + config.surfel_lambda_dist, zero))
+
     def render_batch(params: GaussianParams, alive, batch: ViewBatch, deltas, pose_on,
-                     net=None, spec=None):
+                     net=None, spec=None, iteration=None):
         sh = params.sh_coeffs
         masked_op = params.masked_opacities(alive)
+        surfels = params.surfels
         total = torch.zeros((), dtype=torch.float32, device=dev)
-        m_acc = {k: torch.zeros((), dtype=torch.float32, device=dev)
-                 for k in ("l1", "ssim", "psnr")}
+        keys = ("l1", "ssim", "psnr") + (("surfel/normal", "surfel/dist") if surfels else ())
+        m_acc = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in keys}
+        if surfels:
+            lam_n, lam_d = surfel_weights(iteration)
         s_acc = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in STAT_KEYS}
         radii_max = None
         for b in range(batch.images.shape[0]):
@@ -222,6 +246,17 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                 loss, m = photometric_loss(mark.input(out.render), batch.images[b],
                                            config.lambda_dssim, dtype=config.loss_dtype)
                 loss = mark.outputs(loss)
+            if surfels:
+                with profiling.annotate("step.surfel_reg"):
+                    mark = profiling.grad_span("step.surfel_reg.bwd")
+                    maps = mark.input(torch.cat([out.normal, out.depth[..., None],
+                                                 out.alpha[..., None],
+                                                 out.distortion[..., None]], dim=-1))
+                    l_n, l_d = surfel_terms(maps, viewmat, batch.Ks[b],
+                                            config.surfel_depth_ratio, out.median_depth)
+                    reg_v = mark.outputs(lam_n * l_n + lam_d * l_d)
+                loss = loss + reg_v
+                m["surfel/normal"], m["surfel/dist"] = l_n, l_d
             total = total + loss
             for k in m_acc:
                 m_acc[k] = m_acc[k] + m[k].detach()
@@ -244,7 +279,7 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
 
         total, m_acc, s_acc, radii_max = render_batch(
             leaves, gauss.alive, batch, deltas, pose_on, net,
-            state.deform.spec if deform_on else None)
+            state.deform.spec if deform_on else None, state.iteration)
         reg = scale_ratio_reg(leaves.log_scales, gauss.alive, config.scale_reg_max_ratio,
                               config.scale_reg_weight)
         loss = total / B + reg

@@ -45,6 +45,14 @@ noise, drawn from the trainer's seeded generator, and the step deforms the
 gaussians; validation renders each view at its time. Densify and capacity
 growth leave the network as it is (it has no per-gaussian rows). Not on a
 mesh yet (``NotImplementedError``).
+
+2D Gaussian Splatting (``config.surfels``, ``ops/surfel.py``): the scene is
+initialised as surfels (two scales a row, random orientations), the tile
+cap and class budgets are measured from the surfels' binning ellipses, and
+the step adds the normal and distortion terms. A checkpoint resumes only
+with the ``surfels`` setting it was written with. Not on a mesh, with
+``deform``, with pose refinement (training or validation alignment) or with
+a gradient buffer below 1 (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -244,14 +252,22 @@ class GaussianTrainer:
             scales = scale_activation(p.log_scales)
             opac = opacity_activation(p.logit_opacities)[:, 0].cpu().numpy()
             for i in np.linspace(0, dataset.num_views - 1, min(3, dataset.num_views)).astype(int):
-                proj = project_gaussians(
-                    p.means, p.quats, scales,
-                    torch.as_tensor(dataset.viewmats[i], dtype=torch.float32, device=dev),
-                    torch.as_tensor(dataset.Ks[i], dtype=torch.float32, device=dev),
-                    dataset.width, dataset.height)
-                means2d = proj.means2d.cpu().numpy()[alive]
-                radii = proj.radii.cpu().numpy()[alive]
-                conics = proj.conics.cpu().numpy()[alive]
+                viewmat = torch.as_tensor(dataset.viewmats[i], dtype=torch.float32, device=dev)
+                K = torch.as_tensor(dataset.Ks[i], dtype=torch.float32, device=dev)
+                if p.surfels:
+                    # The surfels' binning ellipses (ops/surfel.py).
+                    from gaussian_splatting_tpu_torch.ops.surfel import surfel_screen
+
+                    m2d, con, rad, _ = surfel_screen(p.means, p.quats, p.log_scales,
+                                                     p.logit_opacities, viewmat, K,
+                                                     dataset.width, dataset.height)
+                else:
+                    proj = project_gaussians(p.means, p.quats, scales, viewmat, K,
+                                             dataset.width, dataset.height)
+                    m2d, con, rad = proj.means2d, proj.conics, proj.radii
+                means2d = m2d.cpu().numpy()[alive]
+                radii = rad.cpu().numpy()[alive]
+                conics = con.cpu().numpy()[alive]
                 for m in range(M):
                     nt = exact_tile_counts(
                         means2d - np.asarray([0.0, m * band_h], means2d.dtype), radii,
@@ -415,6 +431,27 @@ class GaussianTrainer:
         self.logger.log_artifact(str(out / "final.ply"), "model-ply")
         return n
 
+    def _check_surfels(self, cfg) -> None:
+        """Raise ``NotImplementedError`` for what surfels do not run with
+        yet, naming what is missing."""
+        from gaussian_splatting_tpu_torch.ops.render import SURFELS_POSE
+        from gaussian_splatting_tpu_torch.parallel.sharded_step import SURFELS_ON_MESH
+
+        if self.mesh is not None or cfg.mesh_data * cfg.mesh_tile > 1:
+            raise NotImplementedError(SURFELS_ON_MESH)
+        if cfg.deform:
+            raise NotImplementedError(
+                "surfels with deform: the deformation's offsets move 3D gaussians through the "
+                "static projection pair; the surfel pair takes none yet")
+        if cfg.optimize_poses or cfg.val_pose_align_steps > 0:
+            raise NotImplementedError(SURFELS_POSE)
+        if cfg.grad_buffer_frac < 1.0:
+            raise NotImplementedError(
+                "surfels with grad_buffer_frac < 1: the gradient-buffer probe measures the "
+                "static kernels' stream only")
+        if cfg.rasterize_mode != "classic":
+            raise NotImplementedError("surfels render in the classic opacity mode only")
+
     # ---- main entry --------------------------------------------------------
 
     def train(self, dataset: ViewDataset, output_dir: str, points: Optional[np.ndarray] = None,
@@ -425,6 +462,8 @@ class GaussianTrainer:
             from gaussian_splatting_tpu_torch.parallel.sharded_step import DEFORM_ON_MESH
 
             raise NotImplementedError(DEFORM_ON_MESH)
+        if cfg.surfels:
+            self._check_surfels(cfg)
         if self.mesh is None and cfg.mesh_data * cfg.mesh_tile > 1:
             from gaussian_splatting_tpu_torch.parallel.mesh import make_mesh
 
@@ -463,6 +502,10 @@ class GaussianTrainer:
         start_iter = 0
         if resume_from:
             state, meta = load_checkpoint(resume_from, device=dev)
+            if state.gauss.params.surfels != bool(cfg.surfels):
+                held = "surfels" if state.gauss.params.surfels else "3D gaussians"
+                raise ValueError(f"{resume_from} holds {held}; resume it with "
+                                 f"surfels={state.gauss.params.surfels}")
             start_iter = int(state.iteration)
             extent = float(meta.get("scene_extent", extent))
             log.info("resumed from %s at iteration %d", resume_from, start_iter)
@@ -471,10 +514,12 @@ class GaussianTrainer:
                 n_init = int(min(max(len(points_f) * 3, cfg.initial_gaussians),
                                  cfg.max_gaussians // 2))
                 gauss = init_from_points(points_f, colors_f, n_init,
-                                         init_opacity=cfg.init_opacity, device=dev)
+                                         init_opacity=cfg.init_opacity, device=dev,
+                                         surfels=cfg.surfels)
             else:
                 log.warning("no 3D points; random init")
-                gauss = init_random(int(cfg.initial_gaussians), device=dev)
+                gauss = init_random(int(cfg.initial_gaussians), device=dev,
+                                    surfels=cfg.surfels)
             state = TrainState(gauss=gauss, opt=adam_init(gauss.params),
                                iteration=torch.zeros((), dtype=torch.int32, device=dev))
 
