@@ -228,9 +228,14 @@ Phases (any failure exits nonzero and prints no result):
    decisions and median depths bit for bit, the maps within 1e-5 (the
    distortion 1e-5 of the largest M2, the size of the terms it cancels
    from), the reduced gradients within 1e-4; each kernel's time alone;
-   then ``TRAIN_STEPS`` steps of ``make_train_step`` with surfels at batch
-   4 (both regularizers on): finite, descending losses, no gradient entry
-   dropped, one projection pair and one raster pair launched a view, the
+   the regularizers' pair (``csrc/surfel_terms.cu``, ``surfel_terms_check``)
+   on the view's maps against autograd of the plain terms on the card, the
+   means within 1e-6 relative, each gradient row within 1e-5 of its
+   largest, two runs bit for bit, each kernel's time alone beside its bytes
+   bound and the plain version's time; then ``TRAIN_STEPS`` steps of
+   ``make_train_step`` with surfels at batch 4 (both regularizers on):
+   finite, descending losses, no gradient entry dropped, one projection
+   pair, one raster pair and one regularizer pair launched a view, the
    step's time and peak memory.
 
 Output: the kernels JSON line (phase 13's numbers under ``project_sh``,
@@ -367,7 +372,7 @@ SEGSUM_ATOL_FRAC = 1e-5
 ALPHA_SKIP = np.float32(1.0 / 255.0)
 KERNELS = ("pack_soa", "rasterize_fwd", "rasterize_bwd", "pack_rows", "segsum",
            "rasterize_fwd_q", "rasterize_bwd_q", "partition", "project_sh", "bin_slots",
-           "adam", "rasterize_surfel")
+           "adam", "rasterize_surfel", "surfel_terms")
 
 
 def log(msg):
@@ -3274,7 +3279,60 @@ def adam_alone():
 
 
 SURFEL_LAUNCHES = ("project_surfel_fwd", "project_surfel_bwd", "surfel_raster_fwd",
-                   "surfel_raster_bwd")
+                   "surfel_raster_bwd", "surfel_terms_fwd", "surfel_terms_bwd")
+# The regularizers' pair's bytes a pixel (csrc/surfel_terms.cu): the forward
+# reads 24 B, the backward reads 20 B and writes the 48 B gradient row.
+SURFEL_TERMS_FWD_BYTES, SURFEL_TERMS_BWD_BYTES = 24, 20 + 48
+
+
+def surfel_terms_check(maps, viewmat, K, missed):
+    """The regularizers' kernel pair (``csrc/surfel_terms.cu``) on one view's
+    maps against autograd of ``surfel_terms_plain`` on the card (means 1e-6
+    relative, gradient rows 1e-5 of each largest, two runs bit for bit), each
+    kernel's time alone beside the pair's bytes bound, and the plain version's
+    time forward and backward (the six rows gathered, as the step did)."""
+    import torch
+
+    from gaussian_splatting_tpu_torch.ops import surfel as S
+    from gaussian_splatting_tpu_torch.training import loss as L
+
+    H, W, _ = maps.shape
+    g_n = torch.tensor(0.05, device=maps.device)
+    g_d = torch.tensor(100.0, device=maps.device)
+
+    def plain():
+        six = L._six_maps(maps).requires_grad_(True)
+        l_n, l_d = L.surfel_terms_plain(six, viewmat, K, 0.0, maps[..., S.ROW_MEDIAN])
+        (l_n * g_n + l_d * g_d).backward()
+        return l_n.detach(), l_d.detach(), six.grad
+
+    def kernels():
+        m = maps.detach().requires_grad_(True)
+        l_n, l_d = L.surfel_terms(m, viewmat, K)
+        (l_n * g_n + l_d * g_d).backward()
+        return l_n.detach(), l_d.detach(), m.grad
+
+    want, got = plain(), kernels()
+    rep = {"normal_mean": float(got[0]), "dist_mean": float(got[1]),
+           "mean_rel_err": max(abs(float(a) - float(b)) / abs(float(b))
+                               for a, b in zip(got[:2], want[:2]))}
+    d6 = L._six_maps(got[2])
+    rep["grad_row_err"] = max(float((d6[..., r] - want[2][..., r]).abs().max()
+                                    / want[2][..., r].abs().max().clamp_min(1e-30))
+                              for r in range(6))
+    rep["repeat_equal"] = all(torch.equal(a, b) for a, b in zip(got, kernels()))
+    if rep["mean_rel_err"] > 1e-6 or rep["grad_row_err"] > 1e-5 or not rep["repeat_equal"]:
+        missed.append(f"regularizer kernels against plain: {rep}")
+    rep["fwd_kernel_ms"] = kernel_ms(lambda: L.surfel_terms(maps, viewmat, K),
+                                     "surfel_terms_fwd_kernel")
+    rep["bwd_kernel_ms"] = kernel_ms(
+        lambda: L._surfel_terms_bwd_cuda(maps, viewmat, K, 0.0, g_n, g_d),
+        "surfel_terms_bwd_kernel")
+    rep["fwd_bound_ms"] = SURFEL_TERMS_FWD_BYTES * H * W / HBM_BYTES_PER_S * 1e3
+    rep["bwd_bound_ms"] = SURFEL_TERMS_BWD_BYTES * H * W / HBM_BYTES_PER_S * 1e3
+    rep["kernels_ms"] = cuda_ms(kernels)
+    rep["plain_ms"] = cuda_ms(plain)
+    return rep
 
 
 def surfel_phase(dev):
@@ -3378,7 +3436,14 @@ def surfel_phase(dev):
         ras["reduce_ms"] = cuda_ms(lambda: S.reduce_surfel_grads(grad, n, meta[0]))
     rep["raster"] = ras
     log(f"[surfel] raster: {json.dumps(ras)}")
-    del fo, fp, grad, grad_p, b, sp, got, want, outs, ref
+
+    # The regularizers' kernel pair on the view's maps.
+    with torch.no_grad():
+        maps = S.rasterize_surfels(sp, WIDTH, HEIGHT, tile_size=TILE, chunk=CHUNK,
+                                   max_tiles_per_gaussian=MAX_T)[0]
+    rep["terms"] = surfel_terms_check(maps, vms[0], K, missed)
+    log(f"[surfel] regularizers: {json.dumps(rep['terms'])}")
+    del fo, fp, grad, grad_p, b, sp, got, want, outs, ref, maps
     torch.cuda.empty_cache()
 
     # Training steps with both terms on.
@@ -3432,7 +3497,7 @@ def surfel_alone():
     from gaussian_splatting_tpu_torch.ops import _build
 
     _build.build(KERNELS)
-    for name in ("rasterize_surfel", "project_sh"):
+    for name in ("rasterize_surfel", "project_sh", "surfel_terms"):
         fn = "?"
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:

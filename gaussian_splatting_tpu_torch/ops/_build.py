@@ -28,11 +28,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 # Flags one source adds to NVCC_FLAGS. project_sh's radii and bin_slots'
-# tiles decide the binning, and adam's update is the plain update's bit for
-# bit: each must equal the plain PyTorch arithmetic, which rounds every
-# product and every sum, so no multiply-add contraction there.
+# tiles decide the binning, adam's update is the plain update's bit for bit,
+# and surfel_terms follows the plain regularizers to a few ulps: each must
+# round as the plain PyTorch arithmetic rounds every product and every sum,
+# so no multiply-add contraction there.
 SOURCE_FLAGS = {"project_sh": ("-fmad=false",), "bin_slots": ("-fmad=false",),
-                "adam": ("-fmad=false",)}
+                "adam": ("-fmad=false",), "surfel_terms": ("-fmad=false",)}
 
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 # Host C++ for the machine's baseline ISA: a library built here may be loaded

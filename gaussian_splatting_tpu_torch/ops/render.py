@@ -44,10 +44,13 @@ class RenderOut(NamedTuple):
     stats: Optional[dict] = None  # overflow counters (cuda backend only)
     # Surfels (2D Gaussian Splatting, ``ops/surfel.py``) only: the (H, W, 3)
     # view-space normal sum w n, the (H, W) median depth (no gradient) and
-    # the (H, W) depth distortion.
+    # the (H, W) depth distortion; and the (H, W, 12) map buffer they are
+    # views of (``ops/surfel.py``'s rows), which ``training/loss.py::
+    # surfel_terms`` reads where it lies.
     normal: Optional[torch.Tensor] = None
     median_depth: Optional[torch.Tensor] = None
     distortion: Optional[torch.Tensor] = None
+    maps: Optional[torch.Tensor] = None
 
 
 def resolve_backend(backend: str) -> str:
@@ -209,7 +212,7 @@ def render_surfels(means, quats, log_scales, logit_opacities, sh_coeffs, viewmat
         render=compose_render_mode(render_mode, rgb, alpha, depth), alpha=alpha, depth=depth,
         means2d=centers, radii=radii, visibility=radii > 0,
         stats=stats if with_stats else None, normal=img[..., 5:8], median_depth=img[..., 9],
-        distortion=img[..., 8])
+        distortion=img[..., 8], maps=img)
 
 
 def project_and_shade(means, quats, log_scales, logit_opacities, sh_coeffs,

@@ -89,6 +89,8 @@ FAR = 100.0            # the far value of the distortion's depth map m
 M_SCALE = FAR / (FAR - NEAR)
 FILTER_INV_SQ = 2.0    # 1 / sigma^2 of the screen filter, sigma = sqrt(2) / 2
 OUT_ROWS = 12          # r g b depth alpha nx ny nz distortion median M1 M2
+# The rows the surfel regularizers read (training/loss.py::surfel_terms).
+ROW_DEPTH, ROW_ALPHA, ROW_NORMAL, ROW_DIST, ROW_MEDIAN = 3, 4, 5, 8, 9
 GRAD_ROWS_A = 11       # id dcx dcy dT(7) dop
 GRAD_ROWS_B = 7        # id dr dg db dn(3)
 # (tiles x pixels x entries) elements of one plain batch's temporaries.

@@ -9,7 +9,8 @@ moved by its offsets; the network takes a seventh Adam group. A surfel
 scene (2D Gaussian Splatting, two scales a row) adds per view, after the
 photometric loss, the normal-consistency and depth-distortion terms at the
 configuration's weights, each zero before its published start iteration
-(``training/loss.py``). Everything after the backward is
+(``training/loss.py::surfel_terms``, read from the raster's map buffer
+where it lies). Everything after the backward is
 ``apply_gradients``, which the sharded step (``parallel/sharded_step.py``)
 runs too. Spans (``utils/profiling``): ``step.loss`` and its backward
 ``step.loss.bwd`` a view, for surfels ``step.surfel_reg`` and its backward
@@ -249,11 +250,8 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
             if surfels:
                 with profiling.annotate("step.surfel_reg"):
                     mark = profiling.grad_span("step.surfel_reg.bwd")
-                    maps = mark.input(torch.cat([out.normal, out.depth[..., None],
-                                                 out.alpha[..., None],
-                                                 out.distortion[..., None]], dim=-1))
-                    l_n, l_d = surfel_terms(maps, viewmat, batch.Ks[b],
-                                            config.surfel_depth_ratio, out.median_depth)
+                    l_n, l_d = surfel_terms(mark.input(out.maps), viewmat, batch.Ks[b],
+                                            config.surfel_depth_ratio)
                     reg_v = mark.outputs(lam_n * l_n + lam_d * l_d)
                 loss = loss + reg_v
                 m["surfel/normal"], m["surfel/dist"] = l_n, l_d

@@ -23,7 +23,9 @@ The card cases (``-m chip``, run with ``--noconftest``) hold the CUDA kernels
 to their plain versions run on the card at a 1080p view: stop decisions and
 radii bit for bit, the maps to 1e-5 and the gradients to 1e-4 of each
 largest magnitude (the kernels' sums run in another order and contract
-multiply-adds).
+multiply-adds); and the regularizers' kernel pair to autograd of the plain
+terms on the card: the means to 1e-6 relative, each gradient row to 1e-5 of
+its largest, two runs bit for bit.
 """
 
 import types
@@ -474,3 +476,58 @@ def test_raster_kernels_equal_plain_on_the_card(cuda_device, chunk):
         s_p = S.reduce_surfel_grads(grad_p, n, meta_p[0])
         for r, key in enumerate(S.SURFEL_GRAD_KEYS):
             assert _rel(s[r], s_p[r]) < 1e-4, key
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("depth_ratio", [0.0, 0.5])
+def test_surfel_terms_kernels_equal_plain_on_the_card(cuda_device, depth_ratio):
+    """The regularizers' kernel pair (``csrc/surfel_terms.cu``) on the maps of
+    a 1080p view rendered from the card scene, seen from a turned and moved
+    camera, against autograd of ``surfel_terms_plain`` on the card: both
+    means within 1e-6 relative (the kernel sums in double, ATen in float32)
+    and every gradient row within 1e-5 of its largest; two runs bit for bit;
+    the buffer and a strided copy of it bit for bit; one launch of each
+    kernel a call; float64 refused."""
+    from gaussian_splatting_tpu_torch.training import loss as L
+    from gaussian_splatting_tpu_torch.utils import profiling
+
+    p = _card_scene(cuda_device)
+    vm, K = _card_camera(cuda_device)
+    with torch.no_grad():
+        maps = render(p.means, p.quats, p.log_scales, p.logits, p.sh, vm, K, 1920, 1080,
+                      sh_degree=3, backend="cuda", device=cuda_device).maps
+    # The same maps in a larger buffer, strided as a view of it.
+    strided = torch.zeros((1083, 1925, S.OUT_ROWS), device=cuda_device)[:1080, :1920]
+    strided.copy_(maps)
+    c, s = float(np.cos(0.4)), float(np.sin(0.4))
+    view = torch.tensor([[c, 0.0, s, 0.3], [0.0, 1.0, 0.0, -0.2], [-s, 0.0, c, 0.5],
+                         [0.0, 0.0, 0.0, 1.0]], device=cuda_device)
+    g_n = torch.tensor(0.05, device=cuda_device)
+    g_d = torch.tensor(100.0, device=cuda_device)
+
+    six = L._six_maps(maps).requires_grad_(True)
+    want = L.surfel_terms_plain(six, view, K, depth_ratio, maps[..., S.ROW_MEDIAN])
+    (want[0] * g_n + want[1] * g_d).backward()
+
+    def kernels(m):
+        m = m.detach().requires_grad_(True)
+        profiling.reset_counters("launch.surfel_terms_fwd", "launch.surfel_terms_bwd")
+        l_n, l_d = L.surfel_terms(m, view, K, depth_ratio)
+        (l_n * g_n + l_d * g_d).backward()
+        counts = profiling.counters()
+        assert counts["launch.surfel_terms_fwd"] == 1 and counts["launch.surfel_terms_bwd"] == 1
+        return l_n.detach(), l_d.detach(), m.grad
+
+    got = kernels(maps)
+    for a, b in zip(got[:2], want):
+        assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
+    d6 = L._six_maps(got[2])
+    for r in range(6):
+        err = float((d6[..., r] - six.grad[..., r]).abs().max())
+        assert err <= 1e-5 * float(six.grad[..., r].abs().max()), r
+    for row in (0, 1, 2, S.ROW_MEDIAN, S.ROW_MEDIAN + 1, S.ROW_MEDIAN + 2):
+        assert float(got[2][..., row].abs().max()) == 0.0
+    for again in (kernels(maps), kernels(strided)):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError):
+        L.surfel_terms(maps.double(), view.double(), K.double(), depth_ratio)
