@@ -30,7 +30,8 @@ log = logging.getLogger(__name__)
 
 def load_model(path: str, device=None):
     """(GaussianState on ``device``, CUDA unless given; metadata dict) from a
-    ``.npz`` checkpoint (its pose deltas under ``meta["pose_deltas"]``), a
+    ``.npz`` checkpoint (its pose deltas under ``meta["pose_deltas"]``; a
+    deforming checkpoint's canonical gaussians, with a warning), a
     reference ``.pth`` or a ``.ply``."""
     from gaussian_splatting_tpu_torch.training.checkpoint import (
         load_checkpoint,
@@ -39,6 +40,11 @@ def load_model(path: str, device=None):
 
     if path.endswith(".npz"):
         state, meta = load_checkpoint(path, device=device)
+        if state.deform is not None:
+            # No per-view time here (Deformable 3D Gaussians and 4D Gaussian
+            # Splatting alike): the canonical gaussians are evaluated.
+            log.warning("%s holds a deformation (%s); evaluating its canonical scene, "
+                        "undeformed", path, type(state.deform).__name__)
         if state.poses is not None:
             meta = dict(meta)
             meta["pose_deltas"] = state.poses.deltas.cpu().numpy()

@@ -9,8 +9,9 @@ time to offsets of its mean, rotation and scale.
     dx, dr, ds = three linear heads of h_D (3, 4 and 3 outputs)
 
 The renderer applies them after the activations (``ops/project_sh.py``):
-mean + dx, exp(log s) + ds, normalize(q) + dr. The position fed to gamma is
-detached: no gradient reaches the means through the MLP.
+mean + dx, exp(log s) + ds, normalize(q) + dr (4D Gaussian Splatting's
+offsets, ``models/hexplane.py``, are added before them). The position fed
+to gamma is detached: no gradient reaches the means through the MLP.
 
 The network is a dict of tensors under the published module's names
 (``linear.<i>.weight`` (out, in), ``linear.<i>.bias``, ``gaussian_warp.*``,

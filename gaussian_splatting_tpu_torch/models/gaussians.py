@@ -245,7 +245,8 @@ def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
     ``max_radii2d``, ``adam_step``, ``iteration``, with pose refinement
     ``poses/deltas``, ``poses/mu``, ``poses/nu``, and with a deformation
     network ``deform/params/<name>``, ``deform/adam_mu/<name>``,
-    ``deform/adam_nu/<name>`` (the port's own keys)."""
+    ``deform/adam_nu/<name>`` or with a HexPlane field ``hexplane/...``
+    (``models/hexplane.py::to_numpy``; the port's own keys)."""
     def npy(t):
         return t.detach().cpu().numpy()
 
@@ -262,9 +263,10 @@ def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
         for k in _POSE_KEYS:
             out[f"poses/{k}"] = npy(getattr(state.poses, k))
     if getattr(state, "deform", None) is not None:
-        from gaussian_splatting_tpu_torch.models.deform import to_numpy
+        from gaussian_splatting_tpu_torch.models import deform, hexplane
 
-        out.update(to_numpy(state.deform))
+        mod = hexplane if isinstance(state.deform, hexplane.HexPlaneState) else deform
+        out.update(mod.to_numpy(state.deform))
     return out
 
 
@@ -273,10 +275,11 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray], device: DeviceLike = N
     from numpy arrays under the keys ``train_state_to_numpy`` writes (the
     JAX checkpoint's keys): parameters, Adam moments and step, iteration,
     the densify accumulators, when ``poses/deltas`` is present the pose
-    corrections, and when ``deform/params/*`` are the deformation network
-    and its moments. This is how a JAX training state, or a checkpoint,
-    enters the port."""
+    corrections, and when ``deform/params/*`` (or ``hexplane/*``) are the
+    deformation network (or field) and its moments. This is how a JAX
+    training state, or a checkpoint, enters the port."""
     from gaussian_splatting_tpu_torch.models.deform import from_numpy as deform_from_numpy
+    from gaussian_splatting_tpu_torch.models.hexplane import from_numpy as hexplane_from_numpy
     from gaussian_splatting_tpu_torch.training.optimizer import AdamState
     from gaussian_splatting_tpu_torch.training.step import PoseState, TrainState
 
@@ -299,4 +302,5 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray], device: DeviceLike = N
                       opt=AdamState(mu=moments("adam_mu"), nu=moments("adam_nu"),
                                     step=i32(arrays["adam_step"])),
                       iteration=i32(arrays["iteration"]), poses=poses,
-                      deform=deform_from_numpy(arrays, dev))
+                      deform=(deform_from_numpy(arrays, dev)
+                              or hexplane_from_numpy(arrays, dev)))

@@ -29,11 +29,12 @@ NVCC_FLAGS = (
 )
 # Flags one source adds to NVCC_FLAGS. project_sh's radii and bin_slots'
 # tiles decide the binning, adam's update is the plain update's bit for bit,
-# and surfel_terms follows the plain regularizers to a few ulps: each must
+# and surfel_terms and hexplane follow their plain versions to a few ulps: each must
 # round as the plain PyTorch arithmetic rounds every product and every sum,
 # so no multiply-add contraction there.
 SOURCE_FLAGS = {"project_sh": ("-fmad=false",), "bin_slots": ("-fmad=false",),
-                "adam": ("-fmad=false",), "surfel_terms": ("-fmad=false",)}
+                "adam": ("-fmad=false",), "surfel_terms": ("-fmad=false",),
+                "hexplane": ("-fmad=false",)}
 
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 # Host C++ for the machine's baseline ISA: a library built here may be loaded

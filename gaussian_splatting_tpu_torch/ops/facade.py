@@ -8,7 +8,9 @@ norm) of a cached one at the same time; it holds the last 32 views. The
 facade serves interactive and evaluation use, so it renders without
 autograd. A deforming scene (Deformable 3D Gaussians, ``models/deform.py``)
 renders at a time ``t``: the deformation network (``deform``, a
-``DeformState``) runs its forward over every row of the parameters given.
+``DeformState``) runs its forward over every row of the parameters given;
+a 4D Gaussian Splatting field (a ``models/hexplane.py::HexPlaneState``)
+moves them before the activations.
 """
 
 from __future__ import annotations
@@ -92,11 +94,17 @@ class GaussianRasterizer:
         with torch.no_grad():
             offsets = None
             if t is not None:
+                from gaussian_splatting_tpu_torch.models import hexplane
                 from gaussian_splatting_tpu_torch.models.deform import offsets as deform_offsets
 
-                offsets = deform_offsets(deform.params, deform.spec,
-                                         torch.as_tensor(means, dtype=torch.float32,
-                                                         device=self.device), None, t)
+                x = torch.as_tensor(means, dtype=torch.float32, device=self.device)
+                if isinstance(deform, hexplane.HexPlaneState):
+                    means, quats, log_scales = hexplane.deformed(
+                        x, torch.as_tensor(quats, dtype=torch.float32, device=self.device),
+                        torch.as_tensor(log_scales, dtype=torch.float32, device=self.device),
+                        hexplane.offsets(deform.params, deform.box, x, None, t))
+                else:
+                    offsets = deform_offsets(deform.params, deform.spec, x, None, t)
             out = render(means, quats, log_scales, logit_op, sh, viewmat,
                          viewpoint["K"], self.width, self.height,
                          sh_degree=self.sh_degree, bg=bg, backend=self.backend,

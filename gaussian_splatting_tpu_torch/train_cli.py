@@ -78,8 +78,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deform", action="store_true",
                    help="Deformable 3D Gaussians: a deformation MLP moves the gaussians by "
                         "each frame's time (a dynamic scene; one device)")
+    p.add_argument("--deform-field", choices=("mlp", "hexplane"), default=None,
+                   help="with --deform: 'mlp' (Deformable 3D Gaussians, the default) or "
+                        "'hexplane' (4D Gaussian Splatting: a multi-resolution HexPlane "
+                        "field and a small decoder, offsets before the activations)")
     p.add_argument("--deform-warmup", type=int, default=None,
-                   help="static iterations before the deformation starts")
+                   help="static iterations before the deformation starts (4DGS's coarse "
+                        "stage)")
     p.add_argument("--surfels", action="store_true",
                    help="2D Gaussian Splatting: flat surfels with the depth-distortion and "
                         "normal-consistency terms, for depth, normals and surfaces (one device)")
@@ -110,6 +115,7 @@ def config_from_args(args):
         "densify_topk": "densify_topk_fraction",
         "pose_lr": "pose_lr_init", "pose_start_iter": "pose_start_iter",
         "grad_buffer_frac": "grad_buffer_frac", "deform_warmup": "deform_warmup",
+        "deform_field": "deform_field",
         "wandb_mode": "wandb_mode", "wandb_project": "wandb_project",
         "wandb_run_name": "wandb_run_name",
     }

@@ -7,9 +7,10 @@ name and default, so a configuration means the same in both packages.
 mesh (``mesh_data * mesh_tile > 1``) trains through
 ``parallel/sharded_step.py``, one process a device. The video fields
 (``frame_stride``, ``image_scale``, ``cache_dir``, ``matcher``) are read by
-the train CLI and ``eval_num_views`` by the eval CLI. The ``deform_*``
-fields (Deformable 3D Gaussians) and the ``surfel*`` fields (2D Gaussian
-Splatting) are the port's own; the JAX package has neither."""
+the train CLI and ``eval_num_views`` by the eval CLI. The ``deform*``
+fields (Deformable 3D Gaussians, 4D Gaussian Splatting) and the ``surfel*``
+fields (2D Gaussian Splatting) are the port's own; the JAX package has
+neither."""
 
 import dataclasses
 from typing import List, Optional
@@ -130,7 +131,13 @@ class TrainingConfig:
     # The network's shape and its rate and noise schedules are the
     # published constants of models/deform.py. ---
     deform: bool = False
-    # Iterations of static warm-up before the MLP runs.
+    # The deformation's kind: "mlp" (Deformable 3D Gaussians) or "hexplane"
+    # (4D Gaussian Splatting, models/hexplane.py: a HexPlane field and a small
+    # decoder, offsets before the activations; its widths, regularizer
+    # weights and rates are that module's published constants).
+    deform_field: str = "mlp"
+    # Iterations of static warm-up (4DGS's coarse stage) before the
+    # deformation runs.
     deform_warmup: int = 3000
 
     # --- 2D Gaussian Splatting (surfels, ops/surfel.py; the port only):

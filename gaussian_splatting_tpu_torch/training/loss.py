@@ -75,18 +75,22 @@ def photometric_loss(rendered: torch.Tensor, gt: torch.Tensor, lambda_dssim: flo
     render. Returns (loss, metrics dict of l1, ssim, psnr).
 
     ``dtype="bfloat16"`` runs the L1/SSIM image math in bfloat16 with
-    float32 scalars; PSNR is a metric and always float32."""
+    float32 scalars; PSNR is a metric and always float32. With ``lambda_dssim``
+    0 the SSIM is a metric only, computed without a graph (the loss and its
+    gradient are the same)."""
     r = stclamp(rendered)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and lambda_dssim != 0.0):
+        if dtype == "bfloat16":
+            s = ssim(r.to(torch.bfloat16), gt.to(torch.bfloat16)).to(torch.float32)
+        elif dtype == "float32":
+            s = ssim(r, gt)
+        else:
+            raise ValueError(f"unknown loss dtype {dtype!r}")
     if dtype == "bfloat16":
-        rb = r.to(torch.bfloat16)
-        gb = gt.to(torch.bfloat16)
-        l1 = torch.mean(torch.abs(rb - gb).to(torch.float32))
-        s = ssim(rb, gb).to(torch.float32)
-    elif dtype == "float32":
-        l1 = torch.mean(torch.abs(r - gt))
-        s = ssim(r, gt)
+        l1 = torch.mean(torch.abs(r.to(torch.bfloat16) - gt.to(torch.bfloat16))
+                        .to(torch.float32))
     else:
-        raise ValueError(f"unknown loss dtype {dtype!r}")
+        l1 = torch.mean(torch.abs(r - gt))
     loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - s)
     return loss, {
         "l1": l1,

@@ -5,7 +5,11 @@ per-group Adam, the scale ceiling, the densify accumulators and optional
 camera-pose refinement. With a deformation network in the state and times
 in the batch (Deformable 3D Gaussians, ``models/deform.py``) each view first
 runs the MLP over the alive slots at its time and renders the gaussians
-moved by its offsets; the network takes a seventh Adam group. A surfel
+moved by its offsets; the network takes a seventh Adam group. A HexPlane
+field in the state (4D Gaussian Splatting, ``models/hexplane.py``) does the
+same with offsets added before the activations, the means kept attached to
+the field's coordinates, and adds the field's regularizers once a step; its
+26 tensors take one Adam launch at two rates. A surfel
 scene (2D Gaussian Splatting, two scales a row) adds per view, after the
 photometric loss, the normal-consistency and depth-distortion terms at the
 configuration's weights, each zero before its published start iteration
@@ -14,8 +18,10 @@ where it lies). Everything after the backward is
 ``apply_gradients``, which the sharded step (``parallel/sharded_step.py``)
 runs too. Spans (``utils/profiling``): ``step.loss`` and its backward
 ``step.loss.bwd`` a view, for surfels ``step.surfel_reg`` and its backward
-``step.surfel_reg.bwd`` a view, ``step.backward``, ``step.adam`` and inside
-it ``step.adam.deform``; the MLP's own are ``models/deform.py``'s.
+``step.surfel_reg.bwd`` a view, for a HexPlane field ``step.deform_reg`` a
+step, ``step.backward``, ``step.adam`` and inside it ``step.adam.deform``;
+the MLP's and the field's own are ``models/deform.py``'s and
+``models/hexplane.py``'s.
 
 PyTorch runs eagerly: a Python loop over the batch takes the place of the
 JAX ``lax.scan``, and the step updates the state's tensors in place (no copy
@@ -32,6 +38,7 @@ import torch
 from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
 from gaussian_splatting_tpu_torch.core.se3 import apply_pose_delta
 from gaussian_splatting_tpu_torch.models import deform as deform_model
+from gaussian_splatting_tpu_torch.models import hexplane as hexplane_model
 from gaussian_splatting_tpu_torch.models.densify import clamp_scales
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
@@ -83,7 +90,8 @@ class TrainState:
     opt: AdamState
     iteration: torch.Tensor  # () int32
     poses: Optional[PoseState] = None
-    deform: Optional[deform_model.DeformState] = None
+    # The deformation: a DeformState (MLP) or a HexPlaneState (field).
+    deform: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -125,7 +133,7 @@ def apply_gradients(config, state: TrainState, grads: GaussianParams, radii_max:
     shared by ``make_train_step`` and the sharded step: Adam of the six
     groups, the scale ceiling, the densify accumulators, ``max_radii2d``
     (from ``radii_max``, the radius maximum of the state's rows), Adam of
-    the pose deltas and of the deformation network (span
+    the pose deltas and of the deformation network or field (span
     ``step.adam.deform``) where their gradients are given, ``iteration``
     += 1; the rates and ``grad_norms(grads)`` go into ``metrics``. Each
     Adam is one ``adam_multi`` (one kernel launch on the card)."""
@@ -156,13 +164,18 @@ def apply_gradients(config, state: TrainState, grads: GaussianParams, radii_max:
             metrics["pose/delta_max"] = poses.deltas.abs().max()
         if deform_grads is not None:
             with profiling.annotate("step.adam.deform"):
-                dlr = deform_model.lr_schedule(config, state.iteration)
                 ds = state.deform
                 names = list(ds.params)
+                if isinstance(ds, hexplane_model.HexPlaneState):
+                    rates = hexplane_model.lr_schedule(config, state.iteration, scene_extent)
+                    lrs = [rates[k] for k in names]
+                    metrics["grid_lr"] = rates[names[0]]
+                else:
+                    lrs = [deform_model.lr_schedule(config, state.iteration)] * len(names)
                 adam_multi([ds.params[k] for k in names], [deform_grads[k] for k in names],
                            [ds.mu[k] for k in names], [ds.nu[k] for k in names],
-                           [dlr] * len(names), c1, c2, b1, b2, eps)
-                metrics["deform_lr"] = dlr
+                           lrs, c1, c2, b1, b2, eps)
+                metrics["deform_lr"] = lrs[-1]
                 metrics["grad_norm/deform"] = torch.linalg.norm(
                     torch.stack([torch.linalg.norm(g) for g in deform_grads.values()]))
         state.iteration += 1
@@ -178,9 +191,9 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
     a metrics dict of 0-dim tensors, keyed as the JAX step's (l1, ssim,
     psnr, scale_reg, loss, xyz_lr, grad_norm/<group>, stats/<counter> on the
     cuda backend, pose_lr, grad_norm/poses, pose/delta_max when poses are
-    refined, deform_lr, grad_norm/deform when the gaussians deform, and
-    surfel/normal, surfel/dist (the unweighted terms' batch means) for
-    surfels)."""
+    refined, deform_lr, grad_norm/deform when the gaussians deform, also
+    grid_lr and deform_reg for a HexPlane field, and surfel/normal,
+    surfel/dist (the unweighted terms' batch means) for surfels)."""
     dev = resolve_device(device)
     backend = resolve_backend(backend)
     optimize_poses = bool(config.optimize_poses)
@@ -205,7 +218,7 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
                             zero + config.surfel_lambda_dist, zero))
 
     def render_batch(params: GaussianParams, alive, batch: ViewBatch, deltas, pose_on,
-                     net=None, spec=None, iteration=None):
+                     net=None, field=None, iteration=None):
         sh = params.sh_coeffs
         masked_op = params.masked_opacities(alive)
         surfels = params.surfels
@@ -221,11 +234,17 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
             if pose_on:
                 viewmat = apply_pose_delta(viewmat, deltas[batch.view_idx[b]])
             offsets = None
-            if net is not None:
-                offsets = deform_model.offsets(net, spec, params.means, alive_rows(alive),
+            means, quats, log_scales = params.means, params.quats, params.log_scales
+            if isinstance(field, hexplane_model.HexPlaneState):
+                means, quats, log_scales = hexplane_model.deformed(
+                    means, quats, log_scales,
+                    hexplane_model.offsets(net, field.box, means, alive_rows(alive),
+                                           batch.times[b]))
+            elif net is not None:
+                offsets = deform_model.offsets(net, field.spec, means, alive_rows(alive),
                                                batch.times[b])
             out = render(
-                params.means, params.quats, params.log_scales, masked_op, sh, viewmat,
+                means, quats, log_scales, masked_op, sh, viewmat,
                 batch.Ks[b], width, height, sh_degree=sh_degree, backend=backend,
                 tile_size=config.tile_size,
                 max_tiles_per_gaussian=config.max_tiles_per_gaussian,
@@ -277,14 +296,21 @@ def make_train_step(config, width: int, height: int, sh_degree: int, backend: st
 
         total, m_acc, s_acc, radii_max = render_batch(
             leaves, gauss.alive, batch, deltas, pose_on, net,
-            state.deform.spec if deform_on else None, state.iteration)
+            state.deform if deform_on else None, state.iteration)
         reg = scale_ratio_reg(leaves.log_scales, gauss.alive, config.scale_reg_max_ratio,
                               config.scale_reg_weight)
         loss = total / B + reg
+        field_reg = None
+        if deform_on and isinstance(state.deform, hexplane_model.HexPlaneState):
+            with profiling.annotate("step.deform_reg"):
+                field_reg = hexplane_model.regularizer(net)
+            loss = loss + field_reg
         with profiling.annotate("step.backward"):
             loss.backward()
         metrics = {k: v / B for k, v in m_acc.items()}
         metrics["scale_reg"] = reg.detach()
+        if field_reg is not None:
+            metrics["deform_reg"] = field_reg.detach()
         if want_stats:
             metrics.update({f"stats/{k}": v for k, v in s_acc.items()})
         metrics["loss"] = loss.detach()

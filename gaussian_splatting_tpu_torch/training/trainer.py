@@ -46,6 +46,13 @@ gaussians; validation renders each view at its time. Densify and capacity
 growth leave the network as it is (it has no per-gaussian rows). Not on a
 mesh yet (``NotImplementedError``).
 
+4D Gaussian Splatting (``config.deform_field = "hexplane"``,
+``models/hexplane.py``): the same, with a HexPlane field and its decoder in
+place of the MLP, its box set from the initial points (the alive means
+without them) and kept in the checkpoint, and no annealing noise on the
+times. Not on a mesh, with surfels or with pose refinement (training or
+validation alignment) (``NotImplementedError``).
+
 2D Gaussian Splatting (``config.surfels``, ``ops/surfel.py``): the scene is
 initialised as surfels (two scales a row, random orientations), the tile
 cap and class budgets are measured from the surfels' binning ellipses, and
@@ -70,6 +77,7 @@ from gaussian_splatting_tpu_torch._device import DeviceLike, resolve_device
 from gaussian_splatting_tpu_torch.core.activations import opacity_activation, scale_activation
 from gaussian_splatting_tpu_torch.core.se3 import apply_pose_delta
 from gaussian_splatting_tpu_torch.models import deform as deform_model
+from gaussian_splatting_tpu_torch.models import hexplane as hexplane_model
 from gaussian_splatting_tpu_torch.models.densify import densify_and_prune, reset_opacity
 from gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_KEYS,
@@ -248,10 +256,17 @@ class GaussianTrainer:
         dev = p.means.device
         alive = state.gauss.alive.cpu().numpy()
         counts = []
+        # A HexPlane field moves and scales the gaussians before the
+        # activations: each view's footprints are the deformed gaussians'
+        # at its time (the MLP's offsets are not applied here).
+        field = isinstance(state.deform, hexplane_model.HexPlaneState)
         with torch.no_grad():
             scales = scale_activation(p.log_scales)
             opac = opacity_activation(p.logit_opacities)[:, 0].cpu().numpy()
             for i in np.linspace(0, dataset.num_views - 1, min(3, dataset.num_views)).astype(int):
+                if field:
+                    p = self._view_params(state, int(i))[0]
+                    scales = scale_activation(p.log_scales)
                 viewmat = torch.as_tensor(dataset.viewmats[i], dtype=torch.float32, device=dev)
                 K = torch.as_tensor(dataset.Ks[i], dtype=torch.float32, device=dev)
                 if p.surfels:
@@ -454,10 +469,25 @@ class GaussianTrainer:
 
     # ---- main entry --------------------------------------------------------
 
+    def _check_hexplane(self, cfg) -> None:
+        """Raise for what the HexPlane field does not run with yet, naming
+        what is missing."""
+        if cfg.deform_field not in ("mlp", "hexplane"):
+            raise ValueError(f"deform_field is 'mlp' or 'hexplane', not {cfg.deform_field!r}")
+        if not cfg.deform or cfg.deform_field != "hexplane":
+            return
+        if self.mesh is not None or cfg.mesh_data * cfg.mesh_tile > 1:
+            raise NotImplementedError(hexplane_model.HEXPLANE_ON_MESH)
+        if cfg.surfels:
+            raise NotImplementedError(hexplane_model.HEXPLANE_SURFELS)
+        if cfg.optimize_poses or cfg.val_pose_align_steps > 0:
+            raise NotImplementedError(hexplane_model.HEXPLANE_POSE)
+
     def train(self, dataset: ViewDataset, output_dir: str, points: Optional[np.ndarray] = None,
               colors: Optional[np.ndarray] = None,
               resume_from: Optional[str] = None) -> TrainState:
         cfg = self.config
+        self._check_hexplane(cfg)
         if cfg.deform and (self.mesh is not None or cfg.mesh_data * cfg.mesh_tile > 1):
             from gaussian_splatting_tpu_torch.parallel.sharded_step import DEFORM_ON_MESH
 
@@ -528,13 +558,26 @@ class GaussianTrainer:
             state.poses = pose_state_init(V, dev)
             log.info("pose refinement on: %d views, lr %.1e -> %.1e from iter %d", V,
                      cfg.pose_lr_init, cfg.pose_lr_final, cfg.pose_start_iter)
-        if cfg.deform and state.deform is None:
+        hexplane = cfg.deform and cfg.deform_field == "hexplane"
+        if cfg.deform and state.deform is not None and (
+                isinstance(state.deform, hexplane_model.HexPlaneState) != hexplane):
+            raise ValueError(f"{resume_from} holds another deformation than deform_field="
+                             f"{cfg.deform_field!r}")
+        if hexplane and state.deform is None:
+            box = hexplane_model.box_of(
+                points_f if points_f is not None and len(points_f) > 0
+                else state.gauss.params.means[state.gauss.alive].detach().cpu())
+            state.deform = hexplane_model.hexplane_state_init(box, cfg.val_seed, dev)
+            log.info("HexPlane field, box %s, warm-up %d iterations", box.tolist(),
+                     cfg.deform_warmup)
+        elif cfg.deform and state.deform is None:
             state.deform = deform_model.deform_state_init(deform_model.DeformSpec(),
                                                           cfg.val_seed, dev)
             log.info("deformation MLP %s, warm-up %d iterations", state.deform.spec,
                      cfg.deform_warmup)
         if not cfg.deform:
             state.deform = None
+        self._view_times = dataset.view_times() if cfg.deform else None
         log.info("capacity %d, alive %d", state.gauss.capacity, int(state.gauss.n_alive()))
 
         # Adaptive tile-footprint cap from the population's footprints.
@@ -578,7 +621,6 @@ class GaussianTrainer:
         d_images = torch.as_tensor(dataset.images, device=dev)  # uint8 on the device
         d_viewmats = torch.as_tensor(dataset.viewmats, dtype=torch.float32, device=dev)
         d_Ks = torch.as_tensor(dataset.Ks, dtype=torch.float32, device=dev)
-        self._view_times = dataset.view_times() if cfg.deform else None
         d_times = (torch.as_tensor(self._view_times, device=dev) if cfg.deform else None)
 
         def gather_batch(idx) -> ViewBatch:
@@ -624,7 +666,7 @@ class GaussianTrainer:
                 batch = gather_batch(batch_views[it - start_iter])
                 if cfg.deform and it >= cfg.deform_warmup:
                     batch.times = d_times[batch.view_idx]
-                    sd = deform_model.time_noise_scale(it, V)
+                    sd = 0.0 if hexplane else deform_model.time_noise_scale(it, V)
                     if sd > 0.0:
                         batch.times = batch.times + sd * torch.randn(
                             batch.times.shape, generator=self._time_generator, device=dev)
@@ -878,27 +920,34 @@ class GaussianTrainer:
                       rasterize_mode=cfg.rasterize_mode, depth_grad=False,
                       offsets=offsets, device=self.device).render
 
-    def _offsets(self, state, view: Optional[int]):
-        """The deformation's offsets of dataset view ``view`` at its time,
-        without gradients, or None for a static state (or before the
-        warm-up ends)."""
+    def _view_params(self, state, view: Optional[int]):
+        """(parameters, offsets) to render dataset view ``view`` with,
+        without gradients: the state's parameters and the MLP's offsets at
+        the view's time; a HexPlane field's parameters moved by its offsets
+        (before the activations) and no offsets; the state's parameters
+        alone for a static state, or before the warm-up ends."""
+        p = state.gauss.params
         if (self._view_times is None or view is None or state.deform is None
                 or int(state.iteration) < self.config.deform_warmup):
-            return None
-        alive = state.gauss.alive
+            return p, None
+        rows = torch.nonzero(state.gauss.alive).reshape(-1)
+        t = float(self._view_times[view])
+        d = state.deform
         with torch.no_grad():
-            return deform_model.offsets(state.deform.params, state.deform.spec,
-                                        state.gauss.params.means,
-                                        torch.nonzero(alive).reshape(-1),
-                                        float(self._view_times[view]))
+            if isinstance(d, hexplane_model.HexPlaneState):
+                m, q, s = hexplane_model.deformed(
+                    p.means, p.quats, p.log_scales,
+                    hexplane_model.offsets(d.params, d.box, p.means, rows, t))
+                return dataclasses.replace(p, means=m, quats=q, log_scales=s), None
+            return p, deform_model.offsets(d.params, d.spec, p.means, rows, t)
 
     def _render_view(self, state, viewmat, K, sh_degree, width, height, view=None):
         """One view of the state, clipped to [0, 1], without gradients; a
         deforming state at dataset view ``view``'s time."""
-        p = state.gauss.params
+        p, offsets = self._view_params(state, view)
         with torch.no_grad():
             img = self._render_raw(p, p.masked_opacities(state.gauss.alive), viewmat, K,
-                                   sh_degree, width, height, self._offsets(state, view))
+                                   sh_degree, width, height, offsets)
         return torch.clamp(img, 0.0, 1.0)
 
     def _align_pose(self, state, viewmat, K, gt, sh_degree, width, height, view=None):
@@ -906,10 +955,9 @@ class GaussianTrainer:
         with the learning rate decaying 30x over ``val_pose_align_steps`` and
         the config's Adam betas (JAX ``trainer.py:845``)."""
         cfg = self.config
-        p = state.gauss.params
+        p, offsets = self._view_params(state, view)
         params = GaussianParams(**{k: getattr(p, k).detach() for k in PARAM_KEYS})
         masked_op = params.masked_opacities(state.gauss.alive)
-        offsets = self._offsets(state, view)
         return align_pose(
             lambda vm: self._render_raw(params, masked_op, vm, K, sh_degree, width, height,
                                         offsets),

@@ -53,8 +53,8 @@ PARAM_KEYS = ("means", "quats", "log_scales", "logit_opacities", "features_dc",
 # Deformable 3D Gaussians (models/deform.py) and 2D Gaussian Splatting
 # (ops/surfel.py) exist in the port only.
 PORT_ONLY_FIELDS = (
-    "deform", "deform_warmup", "surfels", "surfel_lambda_dist", "surfel_lambda_normal",
-    "surfel_depth_ratio")
+    "deform", "deform_field", "deform_warmup", "surfels", "surfel_lambda_dist",
+    "surfel_lambda_normal", "surfel_depth_ratio")
 
 
 def train_state_arrays(rng, n, n_views=0, moments=False, iteration=0):
